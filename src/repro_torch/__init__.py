@@ -1,0 +1,14 @@
+"""repro_torch: the PyTorch / NVIDIA H100 port of the GVEL loader.
+
+The JAX package ``repro`` is the reference; this package reimplements its
+main path -- text edgelist -> CSR -- in PyTorch with hand-written CUDA
+kernels for Hopper (``repro_torch/csrc``).  Entry points run on CUDA
+unless the caller passes ``device="cpu"``.
+
+    import repro_torch
+    csr = repro_torch.open_graph("graph.el").csr()
+    csr = repro_torch.load_csr("graph.el.gz", method="binned")
+"""
+from .core import CSR, EdgeList, load_csr, load_edgelist, open_graph
+
+__all__ = ["open_graph", "load_csr", "load_edgelist", "EdgeList", "CSR"]

@@ -1,0 +1,117 @@
+"""Edgelist parsing on the card (GVEL Algorithm 1).
+
+The port of ``repro/core/parse.py``.  The per-byte parse is the
+``parse_bytes`` kernel (``kernels.parse_edges``; its plain PyTorch version
+is ``_parse_block_bytes`` here).  Around it, plain tensor code:
+
+* :func:`parse_accumulate` -- the streaming loader's step: a batch of
+  blocks in, its edges packed into the accumulators at the device-resident
+  running ``total`` (``_compact_accumulate``), with no host sync;
+* :func:`parse_block` / :func:`parse_blocks` -- block in, fixed-capacity
+  per-block ``(src, dst, w, count)`` out.
+
+The accumulators are updated **in place** (the reference donates them to
+the same effect); callers keep using the tensors they passed.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.parse_edges import parse_bytes
+from ..kernels.parse_edges.ref import parse_bytes_ref as _parse_block_bytes
+
+I32 = torch.int32
+
+__all__ = ["parse_accumulate", "parse_block", "parse_blocks",
+           "make_accumulators", "_parse_block_bytes", "_compact_accumulate"]
+
+
+def _compact_accumulate(acc_src, acc_dst, acc_w, total, valid, src, dst, w,
+                        *, edge_bound: int):
+    """Pack a batch of per-byte parses into the accumulators at ``total``.
+
+    ``valid``/``src``/``dst``/``w`` are ``(nb, blen)`` byte-domain parses.
+    Blocks pack consecutively and edges within a block stay in line order.
+    A window of ``edge_bound`` slots is written at ``total`` (invalid slots
+    carry the padding values); the caller guarantees ``total + edge_bound
+    <= capacity``.  Returns the accumulators and the new ``total``.
+    """
+    dev = valid.device
+    valid_f = valid.reshape(-1)
+    flat_n = valid_f.shape[0]
+    dest = torch.cumsum(valid_f, 0, dtype=I32) - 1
+    count = (dest[-1] + 1).clamp(min=0)
+    # one scatter packs byte positions (slot edge_bound is the drop bin)
+    slot = torch.where(valid_f & (dest < edge_bound), dest, edge_bound)
+    pos = torch.full((edge_bound + 1,), flat_n, dtype=I32, device=dev)
+    pos.index_put_((slot.long(),), torch.arange(flat_n, dtype=I32,
+                                                device=dev))
+    pos = pos[:edge_bound]
+    pv = pos < flat_n
+    posc = pos.clamp(max=flat_n - 1).long()
+    window = total.long() + torch.arange(edge_bound, device=dev)
+    acc_src[window] = torch.where(pv, src.reshape(-1)[posc], -1)
+    acc_dst[window] = torch.where(pv, dst.reshape(-1)[posc], -1)
+    if acc_w is not None and w is not None:
+        acc_w[window] = torch.where(pv, w.reshape(-1)[posc], 0.0)
+    return acc_src, acc_dst, acc_w, total + count
+
+
+def parse_accumulate(acc_src, acc_dst, acc_w, total, bufs, owned_start: int,
+                     owned_end: int, *, weighted: bool, base: int,
+                     edge_bound: int):
+    """Parse ``bufs`` ``(nb, buf_len)`` and write the batch's edges into
+    the packed accumulators at ``total`` (in place); returns
+    ``(acc_src, acc_dst, acc_w, total)``.  The caller guarantees ``total +
+    edge_bound <= len(acc_src)``."""
+    valid, src, dst, w = parse_bytes(bufs, owned_start, owned_end,
+                                     weighted=weighted, base=base)
+    return _compact_accumulate(acc_src, acc_dst, acc_w, total, valid, src,
+                               dst, w, edge_bound=edge_bound)
+
+
+def parse_blocks(bufs, owned_start: int, owned_end: int, *, weighted: bool,
+                 base: int, edge_cap: int):
+    """Parse ``(nb, n)`` blocks into fixed-capacity ``(src, dst, w,
+    counts)``: ``(nb, edge_cap)`` rows padded with -1 / -1 / 0.0 and
+    ``(nb,)`` int32 counts (``w`` is None when unweighted)."""
+    nb, n = bufs.shape
+    dev = bufs.device
+    valid, src_b, dst_b, w_b = parse_bytes(bufs, owned_start, owned_end,
+                                           weighted=weighted, base=base)
+    pos = torch.cumsum(valid, 1, dtype=I32) - 1
+    count = (pos[:, -1] + 1).clamp(min=0) if n else \
+        torch.zeros(nb, dtype=I32, device=dev)
+    slot = torch.where(valid & (pos < edge_cap), pos, edge_cap)
+    packed = torch.full((nb, edge_cap + 1), n, dtype=I32, device=dev)
+    packed.scatter_(1, slot.long(),
+                    torch.arange(n, dtype=I32, device=dev).expand(nb, n))
+    packed = packed[:, :edge_cap]
+    pv = packed < n
+    pc = packed.clamp(max=max(n - 1, 0)).long()
+    src = torch.where(pv, torch.gather(src_b, 1, pc), -1)
+    dst = torch.where(pv, torch.gather(dst_b, 1, pc), -1)
+    w = torch.where(pv, torch.gather(w_b, 1, pc), 0.0) if weighted else None
+    return src, dst, w, count
+
+
+def parse_block(buf, owned_start: int, owned_end: int, *, weighted: bool,
+                base: int, edge_cap: int):
+    """One ``(n,)`` block -> ``(src, dst, w, count)``, as :func:`parse_blocks`."""
+    src, dst, w, count = parse_blocks(buf[None], owned_start, owned_end,
+                                      weighted=weighted, base=base,
+                                      edge_cap=edge_cap)
+    return src[0], dst[0], None if w is None else w[0], count[0]
+
+
+def make_accumulators(cap: int, *, weighted: bool, device=None):
+    """Fresh packed edge accumulators on ``device``: ``(src=-1, dst=-1,
+    w=0, total=0)``; ``total`` is an int32 scalar that stays on the
+    device."""
+    cap = max(int(cap), 1)
+    acc_src = torch.full((cap,), -1, dtype=I32, device=device)
+    acc_dst = torch.full((cap,), -1, dtype=I32, device=device)
+    acc_w = torch.zeros(cap, dtype=torch.float32, device=device) \
+        if weighted else None
+    total = torch.zeros((), dtype=I32, device=device)
+    return acc_src, acc_dst, acc_w, total

@@ -1,0 +1,196 @@
+"""GraphSource: the lazy front door of the port.
+
+The port of ``repro/core/source.py`` for text edgelists, raw or gzip::
+
+    from repro_torch import open_graph
+    src = open_graph("web.el")        # sniff the codec once; CUDA device
+    src.info()                        # header-only probe, no parse
+    src.csr()                         # lazy, memoized CSR on the card
+    src.edgelist()                    # lazy, memoized EdgeList on the card
+
+``device=None`` resolves to CUDA at open and raises without a CUDA
+device; ``device="cpu"`` runs the plain PyTorch versions.  MTX, ``.gvel``
+snapshots, framed containers, ``rows=``, ``neighbors``/``degree``,
+``save`` and ``csr_sharded`` raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import os
+import zlib
+from typing import Dict, Optional, Tuple
+
+from .codecs import FRAMED_NOT_PORTED, compression_of, gzip_length_hint
+from .env import resolve_device
+from .loader import (DEFAULT_CSR_ENGINE, DEFAULT_EDGELIST_ENGINE, LoadOptions,
+                     available_engines, get_engine, read_csr_via,
+                     read_edgelist_via)
+from .types import CSR, EdgeList
+
+FORMAT_TEXT = "text"
+
+_MTX_BANNER = b"%%MatrixMarket"
+_GVEL_MAGIC = b"GVELSNAP"
+
+_FRONT_DOOR_ITEM = ("ROADMAP Queue 1 item 6 (framed codecs, .gvel "
+                    "snapshots, the front door's remaining products)")
+_SHARDED_ITEM = "ROADMAP Queue 1 item 8 (the sharded load)"
+
+
+def _not_ported(what: str, item: str = _FRONT_DOOR_ITEM):
+    return NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+def _peek(path: str, n: int, kind: Optional[str]) -> bytes:
+    """First ``n`` uncompressed bytes (b"" when unreadable)."""
+    try:
+        with (gzip.open(path, "rb") if kind == "gzip"
+              else open(path, "rb")) as f:
+            return f.read(n)
+    except (OSError, EOFError, zlib.error):
+        return b""
+
+
+def _detect(path: str, offset: int) -> Optional[str]:
+    """The compression kind of a text input; refuses the formats the port
+    does not read yet."""
+    kind = compression_of(path)
+    if kind == "framed":
+        raise NotImplementedError(f"{path}: {FRAMED_NOT_PORTED}")
+    if offset == 0:
+        head = _peek(path, len(_MTX_BANNER), kind)
+        if head.startswith(_GVEL_MAGIC):
+            raise _not_ported(f"{path}: reading .gvel snapshots")
+        if head == _MTX_BANNER:
+            raise _not_ported(f"{path}: reading MatrixMarket files")
+    return kind
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceInfo:
+    """Cheap metadata about a text graph file -- no parse.  Plain text has
+    no header, so ``num_vertices``/``num_edges`` are None; ``raw_bytes``
+    is the uncompressed size when known (gzip trailer hint)."""
+
+    path: str
+    format: str
+    codec: Optional[str]
+    size_bytes: int
+    raw_bytes: Optional[int]
+    num_vertices: Optional[int]
+    num_edges: Optional[int]
+    weighted: Optional[bool]
+    engine: Optional[str]
+    device: str
+
+
+class GraphSource:
+    """A lazy handle on one text graph file; products are computed on first
+    request and memoized on the handle (``src.csr() is src.csr()``)."""
+
+    def __init__(self, path: str, opts: LoadOptions, *, validate: bool = True):
+        self.path = str(path)
+        self._ckind = _detect(self.path, opts.offset)
+        self.options = opts.replace(device=resolve_device(opts.device))
+        self.format = FORMAT_TEXT
+        self._info: Optional[SourceInfo] = None
+        self._el: Optional[EdgeList] = None
+        self._csrs: Dict[Tuple[str, int, Optional[int]], CSR] = {}
+        if validate:
+            os.stat(self.path)
+            if self.options.engine is not None:
+                get_engine(self.options.engine)
+
+    def __repr__(self) -> str:
+        codec = f", codec={self._ckind}" if self._ckind else ""
+        return (f"GraphSource({self.path!r}, format={self.format}{codec}, "
+                f"engine={self.options.engine or 'auto'}, "
+                f"device={self.options.device})")
+
+    def _opts_for(self, product: str) -> LoadOptions:
+        engine = self.options.engine or (
+            DEFAULT_EDGELIST_ENGINE if product == "edgelist"
+            else DEFAULT_CSR_ENGINE)
+        return self.options.replace(engine=engine,
+                                    weighted=bool(self.options.weighted))
+
+    def info(self) -> SourceInfo:
+        """Header-only metadata probe; memoized."""
+        if self._info is None:
+            raw = os.path.getsize(self.path)
+            if self._ckind == "gzip":
+                try:
+                    raw = gzip_length_hint(self.path)
+                except ValueError:
+                    raw = None
+            self._info = SourceInfo(
+                path=self.path, format=self.format, codec=self._ckind,
+                size_bytes=os.path.getsize(self.path), raw_bytes=raw,
+                num_vertices=None, num_edges=None, weighted=None,
+                engine=self.options.engine, device=str(self.options.device))
+        return self._info
+
+    def edgelist(self) -> EdgeList:
+        """The graph as an :class:`EdgeList` on the source's device."""
+        if self._el is None:
+            self._el = read_edgelist_via(self.path, self._opts_for("edgelist"))
+        return self._el
+
+    def csr(self, *, method: Optional[str] = None, rho: int = 4,
+            bin_bits: Optional[int] = None, rows=None) -> CSR:
+        """The graph as a :class:`CSR` on the source's device; computed on
+        first call per ``(method, rho, bin_bits)``.  ``method=None``
+        resolves to the handle's method, then ``staged``."""
+        if rows is not None:
+            raise _not_ported("csr(rows=...)")
+        method = method or self.options.method or "staged"
+        if bin_bits is None:
+            bin_bits = self.options.bin_bits
+        key = (method, rho, bin_bits)
+        if key not in self._csrs:
+            self._csrs[key] = read_csr_via(self.path, self._opts_for("csr"),
+                                           method=method, rho=rho,
+                                           bin_bits=bin_bits)
+        return self._csrs[key]
+
+    def stream(self, **kw):
+        """Packed device edge buffers ``((src, dst, w, total), cap)`` --
+        the build's feed.  Not memoized."""
+        opts = self._opts_for("csr")
+        eng = get_engine(opts.engine)
+        if not hasattr(eng, "stream"):
+            raise ValueError(f"engine {opts.engine!r} has no stream path; "
+                             f"engines: {available_engines()}")
+        return eng.stream(self.path, **{**opts.stream_kwargs(), **kw})
+
+    def neighbors(self, u: int, *, with_weights: bool = False):
+        raise _not_ported("GraphSource.neighbors")
+
+    def degree(self, u: int):
+        raise _not_ported("GraphSource.degree")
+
+    def save(self, out_path: str, **kw):
+        raise _not_ported("GraphSource.save (.gvel snapshots)")
+
+    def csr_sharded(self, *args, **kw):
+        raise _not_ported("GraphSource.csr_sharded", _SHARDED_ITEM)
+
+
+def open_graph(path: str, *, engine: Optional[str] = None,
+               weighted: Optional[bool] = None, base: Optional[int] = None,
+               offset: int = 0, validate: bool = True,
+               symmetric: bool = False, num_vertices: Optional[int] = None,
+               method: Optional[str] = None, bin_bits: Optional[int] = None,
+               device=None, **engine_kw) -> GraphSource:
+    """Open a text graph file (raw or gzip) as a lazy :class:`GraphSource`
+    on ``device`` (default CUDA; raises without one unless
+    ``device="cpu"``).  ``engine_kw`` carries the streaming geometry
+    (``beta``, ``overlap``, ``batch_blocks``)."""
+    opts = LoadOptions(engine=engine, weighted=weighted, symmetric=symmetric,
+                       base=1 if base is None else base,
+                       num_vertices=num_vertices, offset=offset,
+                       method=method, bin_bits=bin_bits, device=device,
+                       engine_kw=dict(engine_kw))
+    return GraphSource(path, opts, validate=validate)

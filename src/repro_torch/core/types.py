@@ -1,0 +1,82 @@
+"""Core data types of the port: edge lists and CSRs over tensors.
+
+The dtype contract is the reference's (``repro/core/types.py``): int32
+vertex ids and targets, float32 weights, ``row_start`` for row-local CSRs.
+Offsets from the port's loaders are int64 (cast once from the int32 scan).
+``.numpy()`` and ``from_numpy`` carry the JAX package's products, as numpy
+arrays, into the port's types and back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _np(x) -> Optional[np.ndarray]:
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _tensor(x, device) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    t = torch.from_numpy(np.array(x))
+    return t if device is None else t.to(device)
+
+
+@dataclasses.dataclass
+class EdgeList:
+    """COO edges; ``weights`` is None for unweighted graphs."""
+
+    src: Any                      # (E,) int32
+    dst: Any                      # (E,) int32
+    weights: Optional[Any]        # (E,) float32 or None
+    num_edges: int
+    num_vertices: int
+
+    def numpy(self) -> "EdgeList":
+        return EdgeList(_np(self.src), _np(self.dst), _np(self.weights),
+                        int(self.num_edges), int(self.num_vertices))
+
+    @classmethod
+    def from_numpy(cls, el, device=None) -> "EdgeList":
+        """Any edge list with numpy-convertible ``src``/``dst``/``weights``
+        (the reference's included) as tensors on ``device``."""
+        return cls(_tensor(el.src, device), _tensor(el.dst, device),
+                   _tensor(el.weights, device), int(el.num_edges),
+                   int(el.num_vertices))
+
+
+@dataclasses.dataclass
+class CSR:
+    """Compressed sparse row adjacency: ``offsets[u] .. offsets[u+1]`` index
+    ``targets``/``weights`` for vertex ``u``; ``row_start`` is the first
+    vertex of a row-local CSR."""
+
+    offsets: Any                  # (V_local + 1,) int64 (or int32)
+    targets: Any                  # (E_local,) int32
+    weights: Optional[Any]        # (E_local,) float32 or None
+    num_vertices: int
+    row_start: int = 0
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.offsets.shape[0]) - 1
+
+    def numpy(self) -> "CSR":
+        return CSR(_np(self.offsets), _np(self.targets), _np(self.weights),
+                   int(self.num_vertices), int(self.row_start))
+
+    @classmethod
+    def from_numpy(cls, csr, device=None) -> "CSR":
+        """Any CSR with numpy-convertible arrays (the reference's included)
+        as tensors on ``device``."""
+        return cls(_tensor(csr.offsets, device), _tensor(csr.targets, device),
+                   _tensor(csr.weights, device), int(csr.num_vertices),
+                   int(getattr(csr, "row_start", 0)))

@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels for GVEL's hot spots, one package each.
+
+Each package ships ``kernel.py`` (the ctypes launch of a CUDA source in
+``repro_torch/csrc/``), ``ref.py`` (the plain PyTorch version) and
+``ops.py`` (the wrapper: plain version for a CPU tensor, kernel for a CUDA
+tensor, a launch count in ``_lib.LAUNCHES``).
+
+  parse_edges       text blocks -> per-byte parsed edges (GVEL Alg. 1)
+  degree_histogram  vertex degrees (Alg. 2)
+  exclusive_scan    degrees -> CSR offsets (Alg. 2 exclusiveScan)
+"""
+from ._lib import LAUNCHES, reset_launches
+from .degree_histogram import degree_histogram, degree_histogram_ref
+from .exclusive_scan import csr_offsets, exclusive_scan, exclusive_scan_ref
+from .parse_edges import parse_bytes, parse_bytes_ref
+
+__all__ = [
+    "LAUNCHES", "reset_launches",
+    "parse_bytes", "parse_bytes_ref",
+    "degree_histogram", "degree_histogram_ref",
+    "exclusive_scan", "csr_offsets", "exclusive_scan_ref",
+]

@@ -1,0 +1,181 @@
+"""The port's CUDA kernels held against their plain PyTorch versions, on the
+card.
+
+Every test here is marked ``cuda`` and skips unless a CUDA device of
+capability >= 9.0 is present; the module imports neither jax nor the JAX
+package, so it runs on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Integer results and float weights (by bit pattern) are compared bitwise.
+"""
+import gzip
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import kernels
+from repro_torch.core import CSR, parse
+from repro_torch.core.build import csr_np
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda", 0)
+
+
+def _text(rng, nbytes, weighted=True):
+    lines, size = [], 0
+    while size < nbytes:
+        line = f"{rng.integers(0, 10**9)} {rng.integers(0, 10**6)}"
+        if weighted:
+            line += f" {rng.normal() * 1e3:.{rng.integers(0, 5)}f}"
+        if rng.random() < 0.05:
+            line = "# " + line
+        lines.append(line)
+        size += len(line) + 1
+    return ("\n".join(lines) + "\n").encode()
+
+
+def _flat(rng, n):
+    flat = np.full(n, 10, np.uint8)
+    b = np.frombuffer(_text(rng, n), np.uint8)[:n]
+    flat[:len(b)] = b
+    return flat
+
+
+def _assert_bytes_equal(got, want, weighted):
+    v = want[0]
+    assert torch.equal(got[0], v)
+    assert torch.equal(got[1][v], want[1][v])
+    assert torch.equal(got[2][v], want[2][v])
+    if weighted:
+        assert torch.equal(got[3][v].view(torch.int32),
+                           want[3][v].view(torch.int32))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("base", [0, 1])
+def test_parse_bytes_strided_span(cuda_device, weighted, base):
+    rng = np.random.default_rng(1 + base)
+    beta, overlap, nb = 4096, 64, 5
+    flat = torch.from_numpy(_flat(rng, (nb - 1) * beta + beta + overlap))
+    span = flat.to(cuda_device)
+    bufs = span.as_strided((nb, beta + overlap), (beta, 1))
+    kernels.reset_launches()
+    got = kernels.parse_bytes(bufs, overlap, overlap + beta,
+                              weighted=weighted, base=base)
+    assert kernels.LAUNCHES["parse_bytes"] == 1
+    want = kernels.parse_bytes_ref(bufs, overlap, overlap + beta,
+                                   weighted=weighted, base=base)
+    torch.cuda.synchronize()
+    _assert_bytes_equal(got, want, weighted)
+    cpu = kernels.parse_bytes(flat.as_strided((nb, beta + overlap),
+                                              (beta, 1)),
+                              overlap, overlap + beta, weighted=weighted,
+                              base=base)
+    _assert_bytes_equal([t.cpu() if t is not None else None for t in got],
+                        cpu, weighted)
+
+
+def test_parse_bytes_hazards(cuda_device):
+    text = (b"12345678901 2\n1 2 123456789.123\n3 4 1.2.5\n1 2 7-2\n"
+            b"1 2 -\n5 6\n# c 1 2\n1 2 3 4\n7 8\r\n\t9\t10  2.50 \n"
+            b"abc\n1 x 2\n\n.\n-\n5" + b" " * 100 + b"6 0.5\n")
+    rows = np.full((1, 512), 10, np.uint8)
+    rows[0, :len(text)] = np.frombuffer(text, np.uint8)
+    bufs = torch.from_numpy(rows)
+    want = kernels.parse_bytes(bufs, 0, 512, weighted=True, base=1)
+    got = kernels.parse_bytes(bufs.to(cuda_device), 0, 512, weighted=True,
+                              base=1)
+    _assert_bytes_equal([t.cpu() for t in got], want, True)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 1 << 20])
+def test_exclusive_scan(cuda_device, n):
+    x = torch.randint(0, 1000, (n,), dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    excl, total = kernels.exclusive_scan(x)
+    assert kernels.LAUNCHES["exclusive_scan"] == 1
+    w_excl, w_total = kernels.exclusive_scan_ref(x)
+    assert torch.equal(excl, w_excl) and torch.equal(total, w_total)
+
+
+def test_exclusive_scan_wraps(cuda_device):
+    x = torch.full((5000,), 2**30, dtype=torch.int32, device=cuda_device)
+    excl, total = kernels.exclusive_scan(x)
+    w_excl, w_total = kernels.exclusive_scan_ref(x.cpu())
+    assert torch.equal(excl.cpu(), w_excl)
+    assert torch.equal(total.cpu(), w_total)
+
+
+def test_empty_inputs_do_not_launch(cuda_device):
+    kernels.reset_launches()
+    excl, total = kernels.exclusive_scan(
+        torch.zeros(0, dtype=torch.int32, device=cuda_device))
+    assert excl.shape == (0,) and int(total) == 0
+    deg = kernels.degree_histogram(
+        torch.zeros(0, dtype=torch.int32, device=cuda_device),
+        num_vertices=4)
+    assert deg.tolist() == [0, 0, 0, 0]
+    assert set(kernels.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("e,v", [(1, 1), (100000, 1000), (1 << 20, 17)])
+def test_degree_histogram(cuda_device, e, v):
+    src = torch.randint(-1, v + 3, (e,), dtype=torch.int32,
+                        device=cuda_device)
+    got = kernels.degree_histogram(src, num_vertices=v)
+    assert torch.equal(got, kernels.degree_histogram_ref(src,
+                                                         num_vertices=v))
+
+
+def test_parse_accumulate_matches_cpu(cuda_device):
+    rng = np.random.default_rng(2)
+    rows = np.stack([_flat(rng, 2048) for _ in range(3)])
+    bound = 3 * (2048 // 4 + 2)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        acc = parse.make_accumulators(bound, weighted=True, device=dev)
+        acc = parse.parse_accumulate(
+            *acc, torch.from_numpy(rows).to(dev), 0, 2048, weighted=True,
+            base=1, edge_bound=bound)
+        outs.append([t.cpu() for t in acc])
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("method", ["staged", "global", "binned"])
+@pytest.mark.parametrize("codec", ["raw", "gzip"])
+def test_load_csr_on_the_card(cuda_device, tmp_path, method, codec):
+    rng = np.random.default_rng(3)
+    v, e = 5000, 60000
+    s = rng.integers(0, v, e).astype(np.int32)
+    d = rng.integers(0, v, e).astype(np.int32)
+    wi = rng.integers(0, 10**6, e)
+    text = "".join(f"{a + 1} {b + 1} {c // 10**4}.{c % 10**4:04d}\n"
+                   for a, b, c in zip(s, d, wi)).encode()
+    path = tmp_path / ("g.el" if codec == "raw" else "g.el.gz")
+    path.write_bytes(text if codec == "raw" else gzip.compress(text, 1))
+    kernels.reset_launches()
+    got = repro_torch.open_graph(str(path), weighted=True, beta=4096,
+                                 batch_blocks=3).csr(method=method)
+    assert got.targets.is_cuda and got.offsets.is_cuda
+    assert min(kernels.LAUNCHES.values()) > 0
+    w = wi.astype(np.float32) / np.float32(10**4)
+    want = csr_np(s, d, w, int(max(s.max(), d.max())) + 1)
+    host = CSR(got.offsets.cpu(), got.targets.cpu(), got.weights.cpu(),
+               got.num_vertices).numpy()
+    assert host.num_vertices == want.num_vertices
+    assert np.array_equal(host.offsets, want.offsets)
+    assert np.array_equal(host.targets, want.targets)
+    assert np.array_equal(host.weights.view(np.int32),
+                          want.weights.view(np.int32))
