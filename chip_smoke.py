@@ -25,11 +25,13 @@ Phases (any failure exits non-zero):
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed with CUDA events beside its
    plain version, one PyTorch call computing the same function (where
-   there is one), and its bound (bytes moved over 3.35 TB/s);
+   there is one), and its bound (bytes moved over 3.35 TB/s); the
+   histogram on both of its inputs, the ``staged`` build's sorted
+   partitions and the stream-order ids of ``global`` and ``binned``;
 5. a breakdown of one scale-22 load: host staging alone, stage + copy +
    parse (the stream), parse alone on device-resident bytes, the build;
    then one load traced with ``torch.profiler`` for the device's busy
-   share.
+   share (the union of its kernel and copy intervals).
 
 Prints the per-run results, then the kernels line, then the card's name
 and power limit, and as the last line ``{"ok": true, "device": ...}``.
@@ -53,6 +55,7 @@ OUT = os.path.join(ROOT, "build", "repro_torch")
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SCALE, SMALL_SCALE, EDGE_FACTOR = 22, 18, 16
+RHO = 4                            # csr_staged's partitions (the default)
 
 
 def say(msg: str) -> None:
@@ -275,11 +278,13 @@ def drive(torch, repro_torch, kernels, path, method, weighted, oracle,
     return row
 
 
-def phase_kernels(torch, repro_torch, kernels, path22, v22, launches,
-                  report):
-    """Each kernel at the main path's shapes: parity, then times."""
+def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, report):
+    """Each kernel at the main path's shapes: parity, then times.  ``runs``
+    maps a method to the launch counts of its scale-22 main-path run; a row
+    reports those of the default method, ``staged``."""
     from repro_torch.core import blocks, codecs
     dev = torch.device("cuda", 0)
+    launches = runs["staged"]
     rows = []
 
     # parse_bytes: one full batch (8 blocks of 256 KiB + 64) of the file
@@ -317,29 +322,46 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, launches,
     cap2 = 1 << max(n - 1, 1).bit_length()
     src2 = src[:cap2].contiguous()
     del _dst
-    got = kernels.degree_histogram(src2, num_vertices=v22)
-    want = kernels.degree_histogram_ref(src2, num_vertices=v22)
-    require(torch.equal(got, want), "degree_histogram (main shape)")
-    ms = cuda_ms(torch, lambda: kernels.degree_histogram(
-        src2, num_vertices=v22), 20)
-    plain = cuda_ms(torch, lambda: kernels.degree_histogram_ref(
-        src2, num_vertices=v22), 5)
-    library = None
-    if bool((src2 >= 0).all()):
-        library = cuda_ms(torch, lambda: torch.bincount(
-            src2, minlength=v22), 5)
-        require(torch.equal(torch.bincount(src2, minlength=v22).int(), got),
-                "degree_histogram vs torch.bincount")
+    # the histogram's two inputs on the path, each with its launches and
+    # times summed over one load: `staged` (the default) counts rho sorted
+    # partitions, one launch each; `global` and `binned` count the ids in
+    # stream order in one launch
+    key = torch.where(src2 >= 0, src2, v22)
+    require(cap2 % RHO == 0, "degree_histogram: partitions of equal size")
+    skey = torch.sort(key.reshape(RHO, cap2 // RHO), dim=1,
+                      stable=True).values
+    inputs = {"staged": [skey[p] for p in range(RHO)], "global": [key]}
+    fns = {"ms": lambda p: kernels.degree_histogram(p, num_vertices=v22),
+           "plain_ms": lambda p: kernels.degree_histogram_ref(
+               p, num_vertices=v22),
+           "library_ms": lambda p: torch.bincount(p, minlength=v22 + 1)[:v22]}
+    iters = {"ms": 20, "plain_ms": 5, "library_ms": 5}
+    hist = {}
+    for method, parts in inputs.items():
+        for p in parts:
+            got, want, library = (f(p) for f in fns.values())
+            require(torch.equal(got, want),
+                    f"degree_histogram (main shape, {method})")
+            require(torch.equal(library.int(), got),
+                    f"degree_histogram vs torch.bincount ({method})")
+        hist[method] = {k: cuda_ms(torch, lambda f=f: [f(p) for p in parts],
+                                   iters[k]) for k, f in fns.items()}
+        hist[method].update(
+            launches=runs[method]["degree_histogram"],
+            bound_ms=bound_ms(sum(4 * p.numel() + 4 * v22 for p in parts)),
+            shape=f"{len(parts)} x E={parts[0].numel()} int32 "
+                  f"{'sorted' if method == 'staged' else 'stream order'} "
+                  f"-> V={v22}")
+    del skey, inputs
+    staged = hist["staged"]
     rows.append(dict(
         name="degree_histogram", route="cuda",
         source="src/repro_torch/csrc/degree_histogram.cu",
         replaces="src/repro/kernels/degree_histogram/kernel.py:48",
-        launches=launches["degree_histogram"], max_abs_err=0, ms=ms,
-        plain_ms=plain, bound_ms=bound_ms(4 * cap2 + 4 * v22),
-        bound_by="bytes", library_ms=library, bitwise=True,
-        shape=f"E={cap2} int32 -> V={v22}"))
+        max_abs_err=0, bound_by="bytes", bitwise=True, **staged,
+        global_and_binned=hist["global"]))
 
-    deg = got
+    deg = kernels.degree_histogram(key, num_vertices=v22)
     got = kernels.exclusive_scan(deg)
     want = kernels.exclusive_scan_ref(deg)
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -423,11 +445,23 @@ def phase_breakdown(torch, repro_torch, path22, report):
     say(json.dumps({"breakdown": row}))
 
 
+def union_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def phase_profile(torch, repro_torch, path22, report):
-    """One traced scale-22 staged load: the device's busy share (kernel and
-    copy time on the card over the load's wall time) and the top device
-    ops.  Overlapping copies and kernels are counted twice, so the busy
-    share is an upper bound."""
+    """One traced scale-22 staged load: the device's busy share (the union
+    of the card's kernel, copy and memset intervals over the load's wall
+    time) and the top device ops.  Only device-side events count, so an
+    aten op and the kernel it launches are not counted twice, and a copy
+    that overlaps a kernel counts once."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -437,15 +471,24 @@ def phase_profile(torch, repro_torch, path22, report):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(len(on_card) > 0, "profile: no device events in the trace")
+    spans = [(e.time_range.start, e.time_range.end) for e in on_card]
+    busy = union_us(spans) / 1e6
+    summed = sum(end - start for start, end in spans) / 1e6
+
     def device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
-    busy = sum(device_us(e) for e in events) / 1e6
-    row = {"wall_s": wall, "device_busy_s": busy,
-           "device_busy_share": busy / wall,
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=device_us, reverse=True)
+    row = {"wall_s": wall, "device_events": len(on_card),
+           "device_busy_s": busy, "device_busy_share": busy / wall,
+           "device_idle_share": 1 - busy / wall,
+           "device_time_summed_s": summed,
            "top": [{"name": e.key[:60], "calls": e.count,
-                    "device_ms": device_us(e) / 1e3} for e in events[:8]]}
+                    "device_ms": device_us(e) / 1e3} for e in top[:8]]}
     report["profile"] = row
     say(json.dumps({"profile": row}))
 
@@ -497,10 +540,8 @@ def main() -> int:
     del oracle22, oracle18w, oracle18z
     say("phase 3: every main-path CSR equals the numpy oracle bitwise")
 
-    # the launches reported per kernel are those of the default-method
-    # scale-22 run (the first run above)
-    phase_kernels(torch, repro_torch, kernels, p22, v22, runs[0]["launches"],
-                  report)
+    phase_kernels(torch, repro_torch, kernels, p22, v22,
+                  {r["method"]: r["launches"] for r in runs[:3]}, report)
     torch.cuda.empty_cache()
     phase_breakdown(torch, repro_torch, p22, report)
     phase_profile(torch, repro_torch, p22, report)

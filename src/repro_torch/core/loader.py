@@ -177,8 +177,8 @@ class _DeviceFeed:
 
 def _parse_span(source, plan, block_lo: int, block_hi: int, *,
                 weighted: bool, base: int, batch_blocks: int, cap: int,
-                device: torch.device, describe: str = "block source",
-                prefetch: bool = True) -> DeviceEdges:
+                device: torch.device, describe: str = "block source"
+                ) -> DeviceEdges:
     """Stage and parse blocks ``[block_lo, block_hi)`` of ``plan`` from
     ``source`` into fresh accumulators of ``cap`` slots on ``device``."""
     os_, oe = owned_range(plan)
@@ -226,33 +226,29 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
         if cuda:
             feed.done(i)
 
-    if prefetch:
-        # not a with-block: a stuck staging thread is abandoned
-        # (shutdown(wait=False)), never joined
-        pool = ThreadPoolExecutor(1, thread_name_prefix="loader-prefetch")
-        try:
-            fut = pool.submit(stage, 0)
-            for i in range(num_batches):
-                try:
-                    flat = fut.result(timeout=faults.WATCHDOG_S)
-                except _FutTimeout:
-                    ids = batch_ids(i)
-                    lo_b = int(ids[0]) * plan.beta
-                    hi_b = min((int(ids[-1]) + 1) * plan.beta, plan.file_len)
-                    raise faults.StageTimeout(
-                        f"{describe}: staging of byte span [{lo_b}, {hi_b}) "
-                        f"(batch {i + 1}/{num_batches}) produced nothing "
-                        f"within the {faults.WATCHDOG_S:.1f}s watchdog "
-                        f"budget (REPRO_WATCHDOG_S); reader is stuck"
-                    ) from None
-                if i + 1 < num_batches:
-                    fut = pool.submit(stage, i + 1)     # double buffer
-                consume(i, flat)
-        finally:
-            pool.shutdown(wait=False, cancel_futures=True)
-    else:
+    # not a with-block: a stuck staging thread is abandoned
+    # (shutdown(wait=False)), never joined
+    pool = ThreadPoolExecutor(1, thread_name_prefix="loader-prefetch")
+    try:
+        fut = pool.submit(stage, 0)
         for i in range(num_batches):
-            consume(i, stage(i))
+            try:
+                flat = fut.result(timeout=faults.WATCHDOG_S)
+            except _FutTimeout:
+                ids = batch_ids(i)
+                lo_b = int(ids[0]) * plan.beta
+                hi_b = min((int(ids[-1]) + 1) * plan.beta, plan.file_len)
+                raise faults.StageTimeout(
+                    f"{describe}: staging of byte span [{lo_b}, {hi_b}) "
+                    f"(batch {i + 1}/{num_batches}) produced nothing "
+                    f"within the {faults.WATCHDOG_S:.1f}s watchdog "
+                    f"budget (REPRO_WATCHDOG_S); reader is stuck"
+                ) from None
+            if i + 1 < num_batches:
+                fut = pool.submit(stage, i + 1)     # double buffer
+            consume(i, flat)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
     return acc_src, acc_dst, acc_w, total
 
 
