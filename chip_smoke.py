@@ -21,13 +21,26 @@ Phases (any failure exits non-zero):
    every CSR is held bitwise
    against a numpy oracle (stable argsort).  The kernels' launch counts
    are set to 0 just before each run and read just after; every kernel
-   must have launched in every run;
+   of the load must have launched in every run;
+3b. the CSR's consumers on the scale-22 CSR, with the launch counts set
+   to 0 just before and read just after (``neighbor_gather`` must have
+   launched): ``kernels.neighbor_gather`` at width 128 on 2**20 uniform
+   ids and on the sources of 2**20 uniformly drawn edges, each bitwise
+   against its plain version; point reads (``neighbors``, ``degree``,
+   ``csr(rows=)``) against the oracle; 65,536 random walks of 80 steps,
+   the first 1,024 bitwise against the port's CPU run, every step an edge
+   or a dead-end self-loop, and split into two batches bitwise; a
+   ``WalkCorpus`` streamed 8 steps and resumed from step 4 bitwise, and
+   its cursor saved and read back;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed with CUDA events beside its
    plain version, one PyTorch call computing the same function (where
    there is one), and its bound (bytes moved over 3.35 TB/s); the
    histogram on both of its inputs, the ``staged`` build's sorted
    partitions and the stream-order ids of ``global`` and ``binned``;
+   ``parse_blocks`` (the parse kernel plus the per-block compaction) at
+   one batch against its CPU run; ``neighbor_gather`` on both of its
+   inputs;
 5. a breakdown of one scale-22 load: host staging alone, stage + copy +
    parse (the stream), parse alone on device-resident bytes, the build;
    then one load traced with ``torch.profiler`` for the device's busy
@@ -56,6 +69,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SCALE, SMALL_SCALE, EDGE_FACTOR = 22, 18, 16
 RHO = 4                            # csr_staged's partitions (the default)
+LOAD_KERNELS = ("parse_bytes", "exclusive_scan", "degree_histogram")
+GATHER_IDS, GATHER_WIDTH = 1 << 20, 128   # width: the reference's default
+NUM_WALKS, WALK_LENGTH = 65536, 81        # 80 steps (node2vec's walk length)
 
 
 def say(msg: str) -> None:
@@ -226,6 +242,22 @@ def phase_build(torch, kernels, report):
                                                  num_vertices=257).cpu(),
                         kernels.degree_histogram_ref(s, num_vertices=257)),
             "degree_histogram (small)")
+    # out-of-range and negative ids, E < width, degrees above width
+    for v, e, width in ((9, 5, 16), (300, 5000, 8)):
+        src = torch.randint(0, v, (e,), generator=g)
+        src[: e // 2] = 3
+        off = torch.zeros(v + 1, dtype=torch.int64)
+        off[1:] = torch.cumsum(torch.bincount(src, minlength=v), 0)
+        tgt = torch.randint(0, v, (e,), dtype=torch.int32, generator=g)
+        ids = torch.cat([torch.arange(-v - 3, v + 4),
+                         torch.tensor([-2**31, 2**31 - 1])]).int()
+        want = kernels.neighbor_gather_ref(ids, off, tgt, width=width)
+        for o in (off, off.int()):
+            got = kernels.neighbor_gather(ids.to(dev), o.to(dev),
+                                          tgt.to(dev), width=width)
+            require(torch.equal(got[0].cpu(), want[0])
+                    and torch.equal(got[1].cpu(), want[1]),
+                    f"neighbor_gather (small, V={v}, {o.dtype})")
     say("phase 1: kernels build and agree with their plain versions")
 
 
@@ -258,18 +290,21 @@ def check_csr(csr, oracle, weighted, what):
 
 def drive(torch, repro_torch, kernels, path, method, weighted, oracle,
           num_edges, what):
-    """One main-path run with the launch counts zeroed just before it."""
+    """One main-path run with the launch counts, and the calls of
+    ``parse_blocks`` (off the load path), zeroed just before it."""
+    from repro_torch.core import parse
     torch.cuda.synchronize()
     kernels.reset_launches()
+    parse.CALLS["parse_blocks"] = 0
     t0 = time.perf_counter()
     csr = repro_torch.open_graph(path, weighted=weighted).csr(method=method)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = dict(kernels.LAUNCHES, parse_blocks=parse.CALLS["parse_blocks"])
     require(csr.targets.is_cuda and csr.offsets.dtype == torch.int64,
             f"{what}: CSR on the card, int64 offsets")
-    require(min(launches.values()) > 0, f"{what}: every kernel launched "
-            f"({launches})")
+    require(min(launches[k] for k in LOAD_KERNELS) > 0,
+            f"{what}: every kernel of the load launched ({launches})")
     check_csr(csr, oracle, weighted, what)
     row = {"run": what, "method": method, "seconds": seconds,
            "edges": num_edges, "edges_per_s": num_edges / seconds,
@@ -278,7 +313,179 @@ def drive(torch, repro_torch, kernels, path, method, weighted, oracle,
     return row
 
 
-def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, report):
+def walk_steps_valid(torch, walks, offsets, targets):
+    """Every step of ``walks`` is an edge of the CSR, or a self-loop at a
+    dead end; vectorised on the card (sorted edge keys + searchsorted)."""
+    v = offsets.shape[0] - 1
+    deg = offsets[1:] - offsets[:-1]
+    src = torch.repeat_interleave(torch.arange(v, device=offsets.device),
+                                  deg)
+    keys = torch.sort(src * v + targets.long()).values
+    del src
+    a = walks[:, :-1].reshape(-1).long()
+    b = walks[:, 1:].reshape(-1).long()
+    dead = deg[a] == 0
+    q = a * v + b
+    at = torch.searchsorted(keys, q).clamp(max=max(keys.numel() - 1, 0))
+    edge = keys[at] == q if keys.numel() else torch.zeros_like(dead)
+    return bool(torch.where(dead, b == a, edge).all())
+
+
+def phase_consumers(torch, repro_torch, kernels, path22, s22, oracle,
+                    report):
+    """The CSR's consumers on the scale-22 CSR: row gathers, point reads,
+    random walks and the walk corpus.  The launch counts are set to 0 just
+    before and read just after.  Returns the gather inputs and the CSR."""
+    from repro_torch.data import prng, walks
+    from repro_torch.data.corpus import (CorpusConfig, WalkCorpus,
+                                         load_cursor, save_cursor)
+    dev = torch.device("cuda", 0)
+    off_np, tgt_np, _ = oracle
+    g = repro_torch.open_graph(path22)
+    csr = g.csr()
+    v, e = csr.num_vertices, int(csr.targets.shape[0])
+    rng = np.random.default_rng(SEED)
+    inputs = {
+        "uniform": torch.from_numpy(
+            rng.integers(0, v, GATHER_IDS).astype(np.int32)).to(dev),
+        "edge_sources": torch.from_numpy(
+            s22[rng.integers(0, e, GATHER_IDS)]).to(dev),
+    }
+    row = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+
+    # row gathers through the public op
+    gathered = {}
+    for name, ids in inputs.items():
+        gathered[name] = kernels.neighbor_gather(ids, csr.offsets,
+                                                 csr.targets,
+                                                 width=GATHER_WIDTH)
+
+    # point reads, the highest-degree vertex among them
+    deg_np = np.diff(off_np)
+    hot = int(deg_np.argmax())
+    for u in (0, 1, hot, int(np.argmin(deg_np)), v // 2, v - 1):
+        lo, hi = int(off_np[u]), int(off_np[u + 1])
+        got = g.neighbors(u)
+        require(got.is_cuda and np.array_equal(got.cpu().numpy(),
+                                               tgt_np[lo:hi]),
+                f"point reads: neighbors({u})")
+        require(g.degree(u) == hi - lo, f"point reads: degree({u})")
+    for lo, hi in ((max(hot - 2, 0), min(hot + 3, v)), (v - 100, v)):
+        part = g.csr(rows=(lo, hi))
+        e_lo, e_hi = int(off_np[lo]), int(off_np[hi])
+        require(part.row_start == lo and np.array_equal(
+            part.offsets.cpu().numpy(), off_np[lo:hi + 1] - e_lo)
+            and np.array_equal(part.targets.cpu().numpy(),
+                               tgt_np[e_lo:e_hi]),
+                f"point reads: csr(rows=({lo}, {hi}))")
+
+    # random walks
+    key = prng.key(SEED)
+    w = walks.random_walks(csr.offsets, csr.targets, key,
+                           num_walks=NUM_WALKS, length=WALK_LENGTH,
+                           num_vertices=v)
+    whole = walks.random_walks(csr.offsets, csr.targets, key,
+                               num_walks=4096, length=WALK_LENGTH,
+                               num_vertices=v)
+    halves = [walks.random_walks(csr.offsets, csr.targets, key,
+                                 num_walks=2048, length=WALK_LENGTH,
+                                 num_vertices=v, walk_offset=o)
+              for o in (0, 2048)]
+
+    # the walk corpus: stream 8 steps, resume from step 4
+    cfg = CorpusConfig(batch=4096, seq=WALK_LENGTH - 1)
+    corpus = WalkCorpus(g, cfg)
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    with corpus.batches(0) as stream:
+        first = [next(stream) for _ in range(8)]
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - tc
+        cursor = stream.next_step
+    with WalkCorpus(g, cfg).batches(start_step=4) as stream:
+        resumed = [next(stream) for _ in range(4)]
+    torch.cuda.synchronize()
+    consumer_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches["neighbor_gather"] > 0,
+            f"consumers: neighbor_gather launched ({launches})")
+
+    # checks, after the counted run
+    for name, (nbrs, deg) in gathered.items():
+        want = kernels.neighbor_gather_ref(inputs[name], csr.offsets,
+                                           csr.targets, width=GATHER_WIDTH)
+        require(torch.equal(nbrs, want[0]) and torch.equal(deg, want[1]),
+                f"neighbor_gather ({name}) vs its plain version")
+    require(w.is_cuda and w.shape == (NUM_WALKS, WALK_LENGTH),
+            "walks: shape and device")
+    cpu_walks = walks.random_walks(csr.offsets.cpu(), csr.targets.cpu(), key,
+                                   num_walks=1024, length=WALK_LENGTH,
+                                   num_vertices=v)
+    require(torch.equal(w[:1024].cpu(), cpu_walks),
+            "walks: the first 1,024 equal the CPU run bitwise")
+    require(walk_steps_valid(torch, w, csr.offsets, csr.targets),
+            "walks: every step is an edge or a dead-end self-loop")
+    require(torch.equal(whole, torch.cat(halves)),
+            "walks: 2 x 2,048 with walk_offset equal one batch of 4,096")
+    require(cursor == 8, "corpus: cursor after 8 steps")
+    for (step, batch), (want_step, want) in zip(resumed, first[4:]):
+        require(step == want_step
+                and torch.equal(batch["tokens"], want["tokens"])
+                and torch.equal(batch["labels"], want["labels"]),
+                f"corpus: resumed step {step} bitwise")
+    require(first[0][1]["tokens"].shape == (4096, WALK_LENGTH - 1)
+            and first[0][1]["tokens"].is_cuda, "corpus: batch shape")
+    cursor_path = os.path.join(OUT, "corpus_cursor.json")
+    save_cursor(cursor_path, cursor)
+    require(load_cursor(cursor_path) == cursor, "corpus: cursor round trip")
+
+    # walk throughput, timed apart from the counted run
+    iters = 3
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(iters):
+        walks.random_walks(csr.offsets, csr.targets, key,
+                           num_walks=NUM_WALKS, length=WALK_LENGTH,
+                           num_vertices=v)
+    torch.cuda.synchronize()
+    walk_s = (time.perf_counter() - tw) / iters
+    steps = NUM_WALKS * (WALK_LENGTH - 1)
+
+    # one corpus-sized walk call traced: kernels it launches, busy share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        walks.random_walks(csr.offsets, csr.targets, key, num_walks=4096,
+                           length=WALK_LENGTH, num_vertices=v)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    on_card = [(ev.time_range.start, ev.time_range.end)
+               for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    row.update(
+        phase_s=time.perf_counter() - t0,
+        walk_trace={"num_walks": 4096, "wall_s": traced_s,
+                    "device_events": len(on_card),
+                    "device_busy_share": union_us(on_card) / 1e6 / traced_s},
+        consumer_run_s=consumer_s, launches=launches, hot_vertex=hot,
+        hot_degree=int(deg_np[hot]),
+        walks={"num_walks": NUM_WALKS, "steps": WALK_LENGTH - 1,
+               "seconds": walk_s, "walk_steps_per_s": steps / walk_s},
+        corpus={"batch": 4096, "seq": WALK_LENGTH - 1, "steps": 8,
+                "ms_per_batch": corpus_s / 8 * 1e3})
+    report["consumers"] = row
+    say(json.dumps({"consumers": row}))
+    say("phase 3b: gathers, point reads, walks and the corpus check out")
+    return {"csr": csr, "inputs": inputs, "launches": launches}
+
+
+def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
+                  report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
     maps a method to the launch counts of its scale-22 main-path run; a row
     reports those of the default method, ``staged``."""
@@ -315,6 +522,39 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, report):
         library_ms=None, bitwise=True,
         shape=f"(8, {plan.buf_len}) uint8 rows {plan.beta} apart; "
               f"{n_valid} lines"))
+
+    # parse_blocks: the parse kernel plus the per-block torch compaction
+    # (XLA outside the Pallas kernel in the reference), at the same batch
+    from repro_torch.core import parse
+    cap = plan.buf_len // 4 + 2
+    got = parse.parse_blocks(bufs, os_, oe, weighted=False, base=1,
+                             edge_cap=cap)
+    want = parse.parse_blocks(bufs.cpu(), os_, oe, weighted=False, base=1,
+                              edge_cap=cap)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)
+                if b is not None) and got[2] is None,
+            "parse_blocks (main shape) vs its CPU run")
+
+    def plain_blocks():
+        valid, s_b, d_b, _w = kernels.parse_bytes_ref(bufs, os_, oe,
+                                                      weighted=False, base=1)
+        return parse._compact_blocks(valid, s_b, d_b, None, edge_cap=cap)
+    require(all(torch.equal(a, b) for a, b in zip(got, plain_blocks())
+                if b is not None), "parse_blocks vs its plain version")
+    ms = cuda_ms(torch, lambda: parse.parse_blocks(
+        bufs, os_, oe, weighted=False, base=1, edge_cap=cap), 50)
+    plain = cuda_ms(torch, plain_blocks, 5, warmup=1)
+    rows.append(dict(
+        name="parse_blocks", route="cuda",
+        source="src/repro_torch/csrc/parse_edges.cu + "
+               "src/repro_torch/core/parse.py",
+        replaces="src/repro/kernels/parse_edges/kernel.py:184",
+        launches=launches["parse_blocks"], max_abs_err=0, ms=ms,
+        plain_ms=plain,
+        bound_ms=bound_ms(flat.size + 8 * cap * 8 + 8 * 4), bound_by="bytes",
+        library_ms=None, bitwise=True,
+        shape=f"(8, {plan.buf_len}) uint8 -> (8, {cap}) int32 x 2 + (8,); "
+              f"launches = its calls in the staged scale-22 load"))
 
     # the build's inputs: the shrunk source buffer and its degrees
     (src, _dst, _w, total), _cap = repro_torch.open_graph(path22).stream()
@@ -377,6 +617,46 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, report):
         launches=launches["exclusive_scan"], max_abs_err=0, ms=ms,
         plain_ms=plain, bound_ms=bound_ms(8 * v22 + 4), bound_by="bytes",
         library_ms=library, bitwise=True, shape=f"N={v22} int32"))
+
+    # neighbor_gather on the consumer path's two inputs
+    csr = consumers["csr"]
+    gather = {}
+    for name, ids in consumers["inputs"].items():
+        nbrs, deg = kernels.neighbor_gather(ids, csr.offsets, csr.targets,
+                                            width=GATHER_WIDTH)
+        want = kernels.neighbor_gather_ref(ids, csr.offsets, csr.targets,
+                                           width=GATHER_WIDTH)
+        require(torch.equal(nbrs, want[0]) and torch.equal(deg, want[1]),
+                f"neighbor_gather (main shape, {name})")
+        del nbrs, want
+        # the bytes that must come from memory: the output and the degrees
+        # per id, the offsets and row reads once per distinct id (a repeated
+        # id's row is already on chip)
+        b = ids.numel()
+        uniq, first = np.unique(ids.cpu().numpy(), return_index=True)
+        read = int(deg[torch.from_numpy(first).to(dev)].clamp(
+            0, GATHER_WIDTH).sum())
+        n_off = np.unique(np.concatenate([uniq, uniq + 1])).size
+        gather[name] = dict(
+            ms=cuda_ms(torch, lambda ids=ids: kernels.neighbor_gather(
+                ids, csr.offsets, csr.targets, width=GATHER_WIDTH), 20),
+            plain_ms=cuda_ms(torch, lambda ids=ids:
+                             kernels.neighbor_gather_ref(
+                                 ids, csr.offsets, csr.targets,
+                                 width=GATHER_WIDTH), 3, warmup=1),
+            bound_ms=bound_ms(4 * b + 8 * n_off + 4 * read
+                              + 4 * b * GATHER_WIDTH + 4 * b),
+            distinct_ids=int(uniq.size), targets_read=read,
+            shape=f"B={b} int32 ids ({name}), offsets (V+1={v22 + 1},) "
+                  f"int64, targets (E={csr.targets.numel()},) int32, "
+                  f"width {GATHER_WIDTH}")
+    rows.append(dict(
+        name="neighbor_gather", route="cuda",
+        source="src/repro_torch/csrc/neighbor_gather.cu",
+        replaces="src/repro/kernels/neighbor_gather/kernel.py:49",
+        launches=consumers["launches"]["neighbor_gather"], max_abs_err=0,
+        bound_by="bytes", library_ms=None, bitwise=True,
+        **gather["uniform"], edge_sources=gather["edge_sources"]))
     report["kernels"] = rows
     return src2, n
 
@@ -537,11 +817,16 @@ def main() -> int:
     runs.append(drive(torch, repro_torch, kernels, p18z, "staged", False,
                       oracle18z, len(s18z), "rmat18 gzip staged"))
     report["runs"] = runs
-    del oracle22, oracle18w, oracle18z
+    del oracle18w, oracle18z
     say("phase 3: every main-path CSR equals the numpy oracle bitwise")
 
+    consumers = phase_consumers(torch, repro_torch, kernels, p22, s22,
+                                oracle22, report)
+    del oracle22
     phase_kernels(torch, repro_torch, kernels, p22, v22,
-                  {r["method"]: r["launches"] for r in runs[:3]}, report)
+                  {r["method"]: r["launches"] for r in runs[:3]}, consumers,
+                  report)
+    del consumers
     torch.cuda.empty_cache()
     phase_breakdown(torch, repro_torch, p22, report)
     phase_profile(torch, repro_torch, p22, report)

@@ -3,7 +3,10 @@
 Public API:
     open_graph -> GraphSource            -- the front door (text, raw or
                                             gzip): .info() / .edgelist() /
-                                            .csr() / .stream()
+                                            .csr() / .csr(rows=) /
+                                            .neighbors() / .degree() /
+                                            .stream()
+    slice_csr                            -- rows [lo, hi) as a row-local CSR
     load_edgelist, load_csr              -- thin wrappers over a GraphSource
     LoadOptions, SourceInfo              -- option / metadata types
     EdgeList, CSR                        -- core types (tensors; .numpy(),
@@ -13,13 +16,14 @@ Public API:
 from .types import CSR, EdgeList
 from .loader import (LoadOptions, available_engines, get_engine, load_csr,
                      load_edgelist, register_engine)
-from .source import GraphSource, SourceInfo, open_graph
-from . import blocks, build, codecs, degrees, env, faults, loader, parse, source
+from .source import GraphSource, SourceInfo, open_graph, slice_csr
+from . import (blocks, build, codecs, degrees, env, faults, indexing, loader,
+               parse, source)
 
 __all__ = [
     "CSR", "EdgeList", "LoadOptions", "GraphSource", "SourceInfo",
-    "open_graph", "load_csr", "load_edgelist", "register_engine",
+    "open_graph", "slice_csr", "load_csr", "load_edgelist", "register_engine",
     "get_engine", "available_engines",
-    "blocks", "build", "codecs", "degrees", "env", "faults", "loader",
-    "parse", "source",
+    "blocks", "build", "codecs", "degrees", "env", "faults", "indexing",
+    "loader", "parse", "source",
 ]

@@ -22,6 +22,10 @@ from ..kernels.parse_edges.ref import parse_bytes_ref as _parse_block_bytes
 
 I32 = torch.int32
 
+# calls of parse_blocks (parse_block included), zeroed by the caller; the
+# loader runs parse_accumulate instead, and a load shows 0 here
+CALLS = {"parse_blocks": 0}
+
 __all__ = ["parse_accumulate", "parse_block", "parse_blocks",
            "make_accumulators", "_parse_block_bytes", "_compact_accumulate"]
 
@@ -70,15 +74,12 @@ def parse_accumulate(acc_src, acc_dst, acc_w, total, bufs, owned_start: int,
                                dst, w, edge_bound=edge_bound)
 
 
-def parse_blocks(bufs, owned_start: int, owned_end: int, *, weighted: bool,
-                 base: int, edge_cap: int):
-    """Parse ``(nb, n)`` blocks into fixed-capacity ``(src, dst, w,
-    counts)``: ``(nb, edge_cap)`` rows padded with -1 / -1 / 0.0 and
-    ``(nb,)`` int32 counts (``w`` is None when unweighted)."""
-    nb, n = bufs.shape
-    dev = bufs.device
-    valid, src_b, dst_b, w_b = parse_bytes(bufs, owned_start, owned_end,
-                                           weighted=weighted, base=base)
+def _compact_blocks(valid, src_b, dst_b, w_b, *, edge_cap: int):
+    """Per-block compaction of ``(nb, n)`` byte-domain parses into
+    fixed-capacity ``(src, dst, w, counts)``: the reference's
+    ``_compact_block`` (XLA outside its Pallas kernel), as torch ops."""
+    nb, n = valid.shape
+    dev = valid.device
     pos = torch.cumsum(valid, 1, dtype=I32) - 1
     count = (pos[:, -1] + 1).clamp(min=0) if n else \
         torch.zeros(nb, dtype=I32, device=dev)
@@ -91,8 +92,23 @@ def parse_blocks(bufs, owned_start: int, owned_end: int, *, weighted: bool,
     pc = packed.clamp(max=max(n - 1, 0)).long()
     src = torch.where(pv, torch.gather(src_b, 1, pc), -1)
     dst = torch.where(pv, torch.gather(dst_b, 1, pc), -1)
-    w = torch.where(pv, torch.gather(w_b, 1, pc), 0.0) if weighted else None
+    w = None if w_b is None else \
+        torch.where(pv, torch.gather(w_b, 1, pc), 0.0)
     return src, dst, w, count
+
+
+def parse_blocks(bufs, owned_start: int, owned_end: int, *, weighted: bool,
+                 base: int, edge_cap: int):
+    """Parse ``(nb, n)`` blocks into fixed-capacity ``(src, dst, w,
+    counts)``: ``(nb, edge_cap)`` rows padded with -1 / -1 / 0.0 and
+    ``(nb,)`` int32 counts (``w`` is None when unweighted).  The contract
+    of ``repro/kernels/parse_edges/kernel.py::parse_edges_kernel``: the
+    ``parse_bytes`` kernel, then :func:`_compact_blocks`."""
+    CALLS["parse_blocks"] += 1
+    valid, src_b, dst_b, w_b = parse_bytes(bufs, owned_start, owned_end,
+                                           weighted=weighted, base=base)
+    return _compact_blocks(valid, src_b, dst_b, w_b if weighted else None,
+                           edge_cap=edge_cap)
 
 
 def parse_block(buf, owned_start: int, owned_end: int, *, weighted: bool,

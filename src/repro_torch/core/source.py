@@ -8,11 +8,13 @@ The port of ``repro/core/source.py`` for text edgelists, raw or gzip::
     src.csr()                         # lazy, memoized CSR on the card
     src.edgelist()                    # lazy, memoized EdgeList on the card
 
+    src.csr(rows=(lo, hi))            # row-local slice of the CSR
+    src.neighbors(u), src.degree(u)   # point reads
+
 ``device=None`` resolves to CUDA at open and raises without a CUDA
 device; ``device="cpu"`` runs the plain PyTorch versions.  MTX, ``.gvel``
-snapshots, framed containers, ``rows=``, ``neighbors``/``degree``,
-``save`` and ``csr_sharded`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+snapshots, framed containers, ``save`` and ``csr_sharded`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -66,6 +68,41 @@ def _detect(path: str, offset: int) -> Optional[str]:
         if head == _MTX_BANNER:
             raise _not_ported(f"{path}: reading MatrixMarket files")
     return kind
+
+
+def _normalize_rows(rows) -> Tuple[int, int]:
+    """``rows`` -> ``(lo, hi)``: a ``range`` with step 1 or a ``(lo, hi)``
+    pair; bounds are checked against |V| downstream."""
+    if isinstance(rows, range):
+        if rows.step != 1:
+            raise ValueError(f"rows must have step 1, got {rows!r}")
+        return rows.start, max(rows.start, rows.stop)
+    try:
+        lo, hi = rows
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"rows must be a step-1 range or a (lo, hi) pair, "
+            f"got {rows!r}") from None
+    lo, hi = int(lo), int(hi)
+    if hi < lo:
+        raise ValueError(f"rows (lo, hi) must have lo <= hi, got {rows!r}")
+    return lo, hi
+
+
+def slice_csr(csr: CSR, lo: int, hi: int) -> CSR:
+    """Vertex rows ``[lo, hi)`` of a global CSR as a row-local CSR on the
+    same device: ``offsets`` rebased to 0, ``row_start=lo``, global
+    ``num_vertices``; ``targets``/``weights`` are views of the CSR's."""
+    if csr.row_start != 0:
+        raise ValueError("slice_csr expects a global CSR (row_start == 0)")
+    if not 0 <= lo <= hi <= csr.num_rows:
+        raise IndexError(
+            f"row range [{lo}, {hi}) outside [0, {csr.num_rows})")
+    off = csr.offsets[lo:hi + 1]
+    e_lo, e_hi = off[[0, -1]].tolist()
+    w = None if csr.weights is None else csr.weights[e_lo:e_hi]
+    return CSR(off - e_lo, csr.targets[e_lo:e_hi], w, csr.num_vertices,
+               row_start=lo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,12 +179,18 @@ class GraphSource:
             bin_bits: Optional[int] = None, rows=None) -> CSR:
         """The graph as a :class:`CSR` on the source's device; computed on
         first call per ``(method, rho, bin_bits)``.  ``method=None``
-        resolves to the handle's method, then ``staged``."""
-        if rows is not None:
-            raise _not_ported("csr(rows=...)")
+        resolves to the handle's method, then ``staged``.
+
+        ``rows`` (a step-1 ``range`` or a ``(lo, hi)`` pair) returns the
+        row-local slice of that (memoized) CSR, as :func:`slice_csr`;
+        slices are not memoized."""
         method = method or self.options.method or "staged"
         if bin_bits is None:
             bin_bits = self.options.bin_bits
+        if rows is not None:
+            lo, hi = _normalize_rows(rows)
+            return slice_csr(self.csr(method=method, rho=rho,
+                                      bin_bits=bin_bits), lo, hi)
         key = (method, rho, bin_bits)
         if key not in self._csrs:
             self._csrs[key] = read_csr_via(self.path, self._opts_for("csr"),
@@ -165,11 +208,33 @@ class GraphSource:
                              f"engines: {available_engines()}")
         return eng.stream(self.path, **{**opts.stream_kwargs(), **kw})
 
-    def neighbors(self, u: int, *, with_weights: bool = False):
-        raise _not_ported("GraphSource.neighbors")
+    def _row(self, u: int) -> Tuple[CSR, int, int]:
+        full = self.csr()
+        if not 0 <= u < full.num_rows:
+            raise IndexError(f"{self.path}: vertex {u} outside "
+                             f"[0, {full.num_rows})")
+        lo, hi = full.offsets[u:u + 2].tolist()
+        return full, lo, hi
 
-    def degree(self, u: int):
-        raise _not_ported("GraphSource.degree")
+    def neighbors(self, u: int, *, with_weights: bool = False):
+        """Point read: vertex ``u``'s neighbor ids as a 1-D int32 tensor
+        on the source's device (ids and weights as a pair with
+        ``with_weights=True``), sliced from the memoized CSR."""
+        u = int(u)
+        if with_weights and not self.options.weighted:
+            raise ValueError(
+                f"{self.path}: with_weights=True but source is unweighted")
+        full, lo, hi = self._row(u)
+        ids = full.targets[lo:hi]
+        if not with_weights:
+            return ids
+        return ids, full.weights[lo:hi]
+
+    def degree(self, u: int) -> int:
+        """Vertex ``u``'s out-degree, from two offsets of the memoized
+        CSR (a Python int, as in the reference)."""
+        _full, lo, hi = self._row(int(u))
+        return hi - lo
 
     def save(self, out_path: str, **kw):
         raise _not_ported("GraphSource.save (.gvel snapshots)")

@@ -8,10 +8,12 @@ tensor, a launch count in ``_lib.LAUNCHES``).
   parse_edges       text blocks -> per-byte parsed edges (GVEL Alg. 1)
   degree_histogram  vertex degrees (Alg. 2)
   exclusive_scan    degrees -> CSR offsets (Alg. 2 exclusiveScan)
+  neighbor_gather   batched fixed-width CSR row reads (the CSR's consumers)
 """
 from ._lib import LAUNCHES, reset_launches
 from .degree_histogram import degree_histogram, degree_histogram_ref
 from .exclusive_scan import csr_offsets, exclusive_scan, exclusive_scan_ref
+from .neighbor_gather import neighbor_gather, neighbor_gather_ref
 from .parse_edges import parse_bytes, parse_bytes_ref
 
 __all__ = [
@@ -19,4 +21,5 @@ __all__ = [
     "parse_bytes", "parse_bytes_ref",
     "degree_histogram", "degree_histogram_ref",
     "exclusive_scan", "csr_offsets", "exclusive_scan_ref",
+    "neighbor_gather", "neighbor_gather_ref",
 ]

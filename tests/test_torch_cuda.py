@@ -19,8 +19,13 @@ import repro_torch
 from repro_torch import kernels
 from repro_torch.core import CSR, parse
 from repro_torch.core.build import csr_np
+from repro_torch.data import prng, walks
+from repro_torch.data.corpus import CorpusConfig, WalkCorpus
 
 pytestmark = pytest.mark.cuda
+
+# the kernels a load runs; neighbor_gather serves the CSR's consumers
+LOAD_KERNELS = ("parse_bytes", "exclusive_scan", "degree_histogram")
 
 
 @pytest.fixture
@@ -169,7 +174,7 @@ def test_load_csr_on_the_card(cuda_device, tmp_path, method, codec):
     got = repro_torch.open_graph(str(path), weighted=True, beta=4096,
                                  batch_blocks=3).csr(method=method)
     assert got.targets.is_cuda and got.offsets.is_cuda
-    assert min(kernels.LAUNCHES.values()) > 0
+    assert min(kernels.LAUNCHES[k] for k in LOAD_KERNELS) > 0
     w = wi.astype(np.float32) / np.float32(10**4)
     want = csr_np(s, d, w, int(max(s.max(), d.max())) + 1)
     host = CSR(got.offsets.cpu(), got.targets.cpu(), got.weights.cpu(),
@@ -179,3 +184,83 @@ def test_load_csr_on_the_card(cuda_device, tmp_path, method, codec):
     assert np.array_equal(host.targets, want.targets)
     assert np.array_equal(host.weights.view(np.int32),
                           want.weights.view(np.int32))
+
+
+def _random_csr(rng, v, e, hot=None):
+    src = rng.integers(0, v, e)
+    if hot is not None:
+        src[: e // 2] = hot
+    off = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=v))])
+    return (torch.from_numpy(off.astype(np.int64)),
+            torch.from_numpy(rng.integers(0, v, e).astype(np.int32)))
+
+
+@pytest.mark.parametrize("v,e,width,hot", [
+    (4, 10, 8, None), (9, 5, 16, None), (300, 5000, 32, 7),
+    (100000, 1 << 20, 128, 3)])
+def test_neighbor_gather(cuda_device, v, e, width, hot):
+    rng = np.random.default_rng(v + width)
+    off, tgt = _random_csr(rng, v, e, hot)
+    ids = torch.from_numpy(np.concatenate([
+        rng.integers(0, v, 4096), np.arange(-v - 3, min(v + 4, 4096)),
+        [-2**31, -2**31 + 1, 2**31 - 2, 2**31 - 1]]).astype(np.int32))
+    want = kernels.neighbor_gather_ref(ids, off, tgt, width=width)
+    for offsets in (off, off.int()):
+        kernels.reset_launches()
+        got = kernels.neighbor_gather(ids.to(cuda_device),
+                                      offsets.to(cuda_device),
+                                      tgt.to(cuda_device), width=width)
+        assert kernels.LAUNCHES["neighbor_gather"] == 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_neighbor_gather_empty_inputs_do_not_launch(cuda_device):
+    kernels.reset_launches()
+    ids = torch.tensor([0, 1, -1], dtype=torch.int32, device=cuda_device)
+    zeros = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    nbrs, deg = kernels.neighbor_gather(
+        ids, zeros, torch.zeros(0, dtype=torch.int32, device=cuda_device),
+        width=4)
+    assert nbrs.tolist() == [[-1] * 4] * 3 and deg.tolist() == [0, 0, 0]
+    nbrs, _ = kernels.neighbor_gather(ids[:0], zeros, ids, width=4)
+    assert nbrs.shape == (0, 4)
+    assert kernels.LAUNCHES["neighbor_gather"] == 0
+
+
+def test_walks_on_the_card_match_the_cpu(cuda_device):
+    off, tgt = _random_csr(np.random.default_rng(4), 5000, 40000)
+    key = prng.key(7)
+    want = walks.random_walks(off, tgt, key, num_walks=300, length=12,
+                              num_vertices=5000, walk_offset=9)
+    got = walks.random_walks(off.to(cuda_device), tgt.to(cuda_device), key,
+                             num_walks=300, length=12, num_vertices=5000,
+                             walk_offset=9)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+def test_point_reads_and_corpus_on_the_card(cuda_device, tmp_path):
+    rng = np.random.default_rng(6)
+    s = rng.integers(0, 700, 9000)
+    d = rng.integers(0, 700, 9000)
+    path = tmp_path / "g.el"
+    path.write_text("".join(f"{a + 1} {b + 1}\n" for a, b in zip(s, d)))
+    card = repro_torch.open_graph(str(path))
+    host = repro_torch.open_graph(str(path), device="cpu")
+    for u in (0, 17, 699):
+        got = card.neighbors(u)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), host.neighbors(u))
+        assert card.degree(u) == host.degree(u)
+    part = card.csr(rows=(100, 200))
+    assert torch.equal(part.targets.cpu(), host.csr(rows=(100, 200)).targets)
+    cfg = CorpusConfig(batch=64, seq=10)
+    a, b = WalkCorpus(card, cfg), WalkCorpus(host, cfg)
+    with a.batches(2) as stream:
+        for _ in range(3):
+            step, batch = next(stream)
+            assert batch["tokens"].is_cuda
+            assert torch.equal(batch["tokens"].cpu(),
+                               b.batch_at(step)["tokens"])

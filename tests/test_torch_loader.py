@@ -190,8 +190,10 @@ def test_source_memoizes_and_probes(graphs):
 def test_unported_products_name_their_roadmap_item(graphs, tmp_path):
     raw, *_ = graphs[(False, 1)]
     src = repro_torch.open_graph(raw, device="cpu")
-    for call in (lambda: src.csr(rows=(0, 2)), lambda: src.neighbors(0),
-                 lambda: src.degree(0), lambda: src.save("x.gvel"),
+    # the point reads are ported (tests/test_torch_source.py holds them)
+    assert src.degree(0) == src.neighbors(0).numel() == \
+        src.csr(rows=(0, 1)).targets.numel()
+    for call in (lambda: src.save("x.gvel"),
                  lambda: src.csr_sharded(None)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             call()
