@@ -2,16 +2,18 @@
 """Drive the PyTorch/H100 port's main path on one card and check it.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --parent DIR   # also time DIR's kernels in turns
 
 Needs one CUDA device of compute capability >= 9.0 and the CUDA toolkit
 (the kernels are built from ``src/repro_torch/csrc`` at first use).  It
-imports neither jax nor the JAX package.  Without a CUDA device, or
-without the repository beside it, it exits non-zero and prints no result.
+imports neither jax nor the JAX package.  Without a CUDA device it exits 2,
+without the repository beside it 3, and prints no result either way.
 
 Phases (any failure exits non-zero):
 
 1. build the kernels and hold each against its plain PyTorch version on
-   small inputs;
+   small inputs (``parse_accumulate`` over three batches into garbage
+   accumulators, weighted and not);
 2. make RMAT text graphs with Graph500's parameters from a seed: scale 22
    (4,194,304 vertices, 67,108,864 edges, 1-based), a weighted scale-18
    file and a gzip scale-18 file; cached under ``build/repro_torch``;
@@ -33,14 +35,22 @@ Phases (any failure exits non-zero):
    ``WalkCorpus`` streamed 8 steps and resumed from step 4 bitwise, and
    its cursor saved and read back;
 4. each kernel at the main path's shapes: bitwise against its plain
-   version on the same inputs, then timed with CUDA events beside its
-   plain version, one PyTorch call computing the same function (where
-   there is one), and its bound (bytes moved over 3.35 TB/s); the
+   version on the same inputs, then timed beside its plain version, one
+   PyTorch call computing the same function (where there is one), and its
+   bound (bytes moved over 3.35 TB/s).  Two times per kernel: ``ms``, CUDA
+   events around back-to-back wrapper calls (the wrapper's host work
+   included), and ``device_ms``, the summed duration of the device
+   kernels and memsets of a window of calls in ``torch.profiler``, per
+   call (``library_device_ms`` likewise for the library call).  The
    histogram on both of its inputs, the ``staged`` build's sorted
    partitions and the stream-order ids of ``global`` and ``binned``;
+   ``parse_accumulate`` at one main-path batch against its plain path;
    ``parse_blocks`` (the parse kernel plus the per-block compaction) at
-   one batch against its CPU run; ``neighbor_gather`` on both of its
-   inputs;
+   the same batch against its CPU run; ``neighbor_gather`` on both of its
+   inputs.  With ``--parent DIR`` (a checkout of another commit, e.g. a
+   ``git archive`` of the parent), DIR's port is imported under another
+   name, and its scan, parse and parse + packing are timed on the same
+   inputs in turns with this tree's (parent, this, this, parent);
 5. a breakdown of one scale-22 load: host staging alone, stage + copy +
    parse (the stream), parse alone on device-resident bytes, the build;
    then one load traced with ``torch.profiler`` for the device's busy
@@ -69,7 +79,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SCALE, SMALL_SCALE, EDGE_FACTOR = 22, 18, 16
 RHO = 4                            # csr_staged's partitions (the default)
-LOAD_KERNELS = ("parse_bytes", "exclusive_scan", "degree_histogram")
+LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram")
 GATHER_IDS, GATHER_WIDTH = 1 << 20, 128   # width: the reference's default
 NUM_WALKS, WALK_LENGTH = 65536, 81        # 80 steps (node2vec's walk length)
 
@@ -203,6 +213,30 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time per call: the summed duration of the kernels and
+    memsets that ``calls`` calls of ``fn`` ran on the card, from
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    require(len(spans) > 0, "device_ms: the profiler saw no device time")
+    return sum(spans) / calls / 1e3
+
+
+def timed(torch, fn, iters: int = 50) -> dict:
+    """``ms`` (events, back-to-back calls) and ``device_ms`` of ``fn``."""
+    return {"ms": cuda_ms(torch, fn, iters), "device_ms": device_ms(torch, fn)}
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -232,11 +266,34 @@ def phase_build(torch, kernels, report):
                                        base=1)
         check_bytes([t.cpu() if t is not None else None for t in got], want,
                     weighted, "parse_bytes (small)")
+    # three batches packed into garbage accumulators from a total of 3
+    bound = 2 * (512 // 4 + 2)
+    for weighted in (False, True):
+        garbage = (torch.randint(-2**31, 2**31 - 1, (3 * bound + 10,),
+                                 dtype=torch.int32, generator=g),
+                   torch.randint(-2**31, 2**31 - 1, (3 * bound + 10,),
+                                 dtype=torch.int32, generator=g),
+                   torch.randn(3 * bound + 10, generator=g))
+        runs = []
+        for d in ("cpu", dev):
+            acc = (garbage[0].to(d, copy=True), garbage[1].to(d, copy=True),
+                   garbage[2].to(d, copy=True) if weighted else None,
+                   torch.tensor(3, dtype=torch.int32, device=d))
+            for k in range(3):
+                acc = kernels.parse_accumulate(
+                    *acc, rows.roll(5 * k).to(d), 0, 512, weighted=weighted,
+                    base=1, edge_bound=bound)
+            runs.append([t.cpu() for t in acc if t is not None])
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(*runs)), "parse_accumulate (small)")
     x = torch.randint(0, 100, (5001,), dtype=torch.int32, generator=g)
     got = kernels.exclusive_scan(x.to(dev))
     want = kernels.exclusive_scan_ref(x)
     require(torch.equal(got[0].cpu(), want[0])
             and torch.equal(got[1].cpu(), want[1]), "exclusive_scan (small)")
+    require(torch.equal(kernels.csr_offsets(x.to(dev)).cpu(),
+                        torch.cat([want[0], want[1][None]])),
+            "csr_offsets (small)")
     s = torch.randint(-1, 300, (20000,), dtype=torch.int32, generator=g)
     require(torch.equal(kernels.degree_histogram(s.to(dev),
                                                  num_vertices=257).cpu(),
@@ -488,8 +545,9 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
     maps a method to the launch counts of its scale-22 main-path run; a row
-    reports those of the default method, ``staged``."""
-    from repro_torch.core import blocks, codecs
+    reports those of the default method, ``staged``.  Returns the inputs
+    the parent comparison reuses."""
+    from repro_torch.core import blocks, codecs, parse
     dev = torch.device("cuda", 0)
     launches = runs["staged"]
     rows = []
@@ -506,26 +564,58 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     want = kernels.parse_bytes_ref(bufs, os_, oe, weighted=False, base=1)
     check_bytes(got, want, False, "parse_bytes (main shape)")
     n_valid = int(want[0].sum())
-    err = 0
-    ms = cuda_ms(torch, lambda: kernels.parse_bytes(bufs, os_, oe,
-                                                    weighted=False, base=1),
-                 50)
-    plain = cuda_ms(torch, lambda: kernels.parse_bytes_ref(
-        bufs, os_, oe, weighted=False, base=1), 5, warmup=1)
-    nbytes = flat.size + 8 * plan.buf_len + 8 * n_valid
     rows.append(dict(
         name="parse_bytes", route="cuda",
         source="src/repro_torch/csrc/parse_edges.cu",
         replaces="src/repro/kernels/parse_edges/kernel.py:125",
-        launches=launches["parse_bytes"], max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound_ms(nbytes), bound_by="bytes",
-        library_ms=None, bitwise=True,
+        launches=launches["parse_bytes"], max_abs_err=0,
+        **timed(torch, lambda: kernels.parse_bytes(bufs, os_, oe,
+                                                   weighted=False, base=1)),
+        plain_ms=cuda_ms(torch, lambda: kernels.parse_bytes_ref(
+            bufs, os_, oe, weighted=False, base=1), 5, warmup=1),
+        bound_ms=bound_ms(flat.size + 8 * plan.buf_len + 8 * n_valid),
+        bound_by="bytes", library_ms=None, bitwise=True,
         shape=f"(8, {plan.buf_len}) uint8 rows {plan.beta} apart; "
-              f"{n_valid} lines"))
+              f"{n_valid} lines; launches = its launches in the staged "
+              f"scale-22 load (parse_blocks only)"))
+
+    # parse_accumulate: the same batch packed at a running total, as the
+    # loader's step; bitwise against the plain path on the card
+    bound = 8 * plan.edge_cap
+    start = 1000
+    acc = parse.make_accumulators(start + bound, weighted=False, device=dev)
+    total = torch.tensor(start, dtype=torch.int32, device=dev)
+
+    def fused():
+        return kernels.parse_accumulate(acc[0], acc[1], None, total, bufs,
+                                        os_, oe, weighted=False, base=1,
+                                        edge_bound=bound)
+
+    def plain_accumulate():
+        return kernels.parse_accumulate_ref(acc[0].clone(), acc[1].clone(),
+                                            None, total, bufs, os_, oe,
+                                            weighted=False, base=1,
+                                            edge_bound=bound)
+    want = plain_accumulate()
+    got = fused()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and int(got[3]) == int(want[3]) == start + n_valid,
+            "parse_accumulate (main shape) vs its plain path")
+    rows.append(dict(
+        name="parse_accumulate", route="cuda",
+        source="src/repro_torch/csrc/parse_edges.cu",
+        replaces="src/repro/kernels/parse_edges/kernel.py:125 (+ "
+                 "src/repro/core/parse.py:232 _compact_accumulate)",
+        launches=launches["parse_accumulate"], max_abs_err=0,
+        **timed(torch, fused),
+        plain_ms=cuda_ms(torch, plain_accumulate, 5, warmup=1),
+        bound_ms=bound_ms(flat.size + 8 * bound + 8), bound_by="bytes",
+        library_ms=None, bitwise=True,
+        shape=f"(8, {plan.buf_len}) uint8 rows {plan.beta} apart -> "
+              f"{n_valid} edges in a window of {bound} int32 x 2"))
 
     # parse_blocks: the parse kernel plus the per-block torch compaction
     # (XLA outside the Pallas kernel in the reference), at the same batch
-    from repro_torch.core import parse
     cap = plan.buf_len // 4 + 2
     got = parse.parse_blocks(bufs, os_, oe, weighted=False, base=1,
                              edge_cap=cap)
@@ -541,20 +631,20 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         return parse._compact_blocks(valid, s_b, d_b, None, edge_cap=cap)
     require(all(torch.equal(a, b) for a, b in zip(got, plain_blocks())
                 if b is not None), "parse_blocks vs its plain version")
-    ms = cuda_ms(torch, lambda: parse.parse_blocks(
-        bufs, os_, oe, weighted=False, base=1, edge_cap=cap), 50)
-    plain = cuda_ms(torch, plain_blocks, 5, warmup=1)
     rows.append(dict(
         name="parse_blocks", route="cuda",
         source="src/repro_torch/csrc/parse_edges.cu + "
                "src/repro_torch/core/parse.py",
         replaces="src/repro/kernels/parse_edges/kernel.py:184",
-        launches=launches["parse_blocks"], max_abs_err=0, ms=ms,
-        plain_ms=plain,
+        launches=launches["parse_blocks"], max_abs_err=0,
+        **timed(torch, lambda: parse.parse_blocks(
+            bufs, os_, oe, weighted=False, base=1, edge_cap=cap)),
+        plain_ms=cuda_ms(torch, plain_blocks, 5, warmup=1),
         bound_ms=bound_ms(flat.size + 8 * cap * 8 + 8 * 4), bound_by="bytes",
         library_ms=None, bitwise=True,
         shape=f"(8, {plan.buf_len}) uint8 -> (8, {cap}) int32 x 2 + (8,); "
               f"launches = its calls in the staged scale-22 load"))
+    del acc
 
     # the build's inputs: the shrunk source buffer and its degrees
     (src, _dst, _w, total), _cap = repro_torch.open_graph(path22).stream()
@@ -586,6 +676,10 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                     f"degree_histogram vs torch.bincount ({method})")
         hist[method] = {k: cuda_ms(torch, lambda f=f: [f(p) for p in parts],
                                    iters[k]) for k, f in fns.items()}
+        for k in ("ms", "library_ms"):
+            f = fns[k]
+            hist[method][k.replace("ms", "device_ms")] = device_ms(
+                torch, lambda f=f: [f(p) for p in parts], 5)
         hist[method].update(
             launches=runs[method]["degree_histogram"],
             bound_ms=bound_ms(sum(4 * p.numel() + 4 * v22 for p in parts)),
@@ -606,27 +700,36 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     want = kernels.exclusive_scan_ref(deg)
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
             "exclusive_scan (main shape)")
-    ms = cuda_ms(torch, lambda: kernels.exclusive_scan(deg), 50)
-    plain = cuda_ms(torch, lambda: kernels.exclusive_scan_ref(deg), 10)
-    library = cuda_ms(torch, lambda: torch.cumsum(deg, 0, dtype=torch.int32),
-                      50)
+    require(got[1].data_ptr() == got[0].data_ptr() + 4 * v22,
+            "exclusive_scan (main shape): prefix and total in one buffer")
+    offsets = kernels.csr_offsets(deg)
+    require(offsets.shape == (v22 + 1,) and torch.equal(offsets[:-1], want[0])
+            and int(offsets[-1]) == int(want[1]),
+            "csr_offsets (main shape)")
+
+    def library():
+        return torch.cumsum(deg, 0, dtype=torch.int32)
     rows.append(dict(
         name="exclusive_scan", route="cuda",
         source="src/repro_torch/csrc/exclusive_scan.cu",
         replaces="src/repro/kernels/exclusive_scan/kernel.py:38",
-        launches=launches["exclusive_scan"], max_abs_err=0, ms=ms,
-        plain_ms=plain, bound_ms=bound_ms(8 * v22 + 4), bound_by="bytes",
-        library_ms=library, bitwise=True, shape=f"N={v22} int32"))
+        launches=launches["exclusive_scan"], max_abs_err=0,
+        **timed(torch, lambda: kernels.exclusive_scan(deg)),
+        plain_ms=cuda_ms(torch, lambda: kernels.exclusive_scan_ref(deg), 10),
+        bound_ms=bound_ms(8 * v22 + 4), bound_by="bytes",
+        library_ms=cuda_ms(torch, library, 50),
+        library_device_ms=device_ms(torch, library), bitwise=True,
+        shape=f"N={v22} int32 -> N+1"))
 
     # neighbor_gather on the consumer path's two inputs
     csr = consumers["csr"]
     gather = {}
     for name, ids in consumers["inputs"].items():
-        nbrs, deg = kernels.neighbor_gather(ids, csr.offsets, csr.targets,
-                                            width=GATHER_WIDTH)
+        nbrs, gdeg = kernels.neighbor_gather(ids, csr.offsets, csr.targets,
+                                             width=GATHER_WIDTH)
         want = kernels.neighbor_gather_ref(ids, csr.offsets, csr.targets,
                                            width=GATHER_WIDTH)
-        require(torch.equal(nbrs, want[0]) and torch.equal(deg, want[1]),
+        require(torch.equal(nbrs, want[0]) and torch.equal(gdeg, want[1]),
                 f"neighbor_gather (main shape, {name})")
         del nbrs, want
         # the bytes that must come from memory: the output and the degrees
@@ -634,11 +737,11 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         # id's row is already on chip)
         b = ids.numel()
         uniq, first = np.unique(ids.cpu().numpy(), return_index=True)
-        read = int(deg[torch.from_numpy(first).to(dev)].clamp(
+        read = int(gdeg[torch.from_numpy(first).to(dev)].clamp(
             0, GATHER_WIDTH).sum())
         n_off = np.unique(np.concatenate([uniq, uniq + 1])).size
         gather[name] = dict(
-            ms=cuda_ms(torch, lambda ids=ids: kernels.neighbor_gather(
+            **timed(torch, lambda ids=ids: kernels.neighbor_gather(
                 ids, csr.offsets, csr.targets, width=GATHER_WIDTH), 20),
             plain_ms=cuda_ms(torch, lambda ids=ids:
                              kernels.neighbor_gather_ref(
@@ -658,7 +761,66 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         bound_by="bytes", library_ms=None, bitwise=True,
         **gather["uniform"], edge_sources=gather["edge_sources"]))
     report["kernels"] = rows
-    return src2, n
+    return {"bufs": bufs, "owned": (os_, oe), "edge_bound": bound,
+            "deg": deg}
+
+
+def phase_parent(torch, kernels, parent_dir, inputs, report):
+    """This tree's scan, parse and parse + packing against those of the
+    checkout at ``parent_dir``, on the same inputs, timed in turns (parent,
+    this, this, parent); both must agree bitwise."""
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(parent_dir), "src", "repro_torch")
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    parent = importlib.util.module_from_spec(spec)
+    sys.modules["repro_torch_parent"] = parent
+    spec.loader.exec_module(parent)
+    from repro_torch_parent import kernels as pkernels
+    from repro_torch_parent.core import parse as pparse
+    from repro_torch.core import parse
+    dev = torch.device("cuda", 0)
+    bufs, (os_, oe), bound = (inputs["bufs"], inputs["owned"],
+                              inputs["edge_bound"])
+    deg = inputs["deg"]
+    accs = {name: parse.make_accumulators(bound, weighted=False, device=dev)
+            for name in ("parent", "this")}
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    fns = {
+        "exclusive_scan": {"parent": lambda: pkernels.exclusive_scan(deg),
+                           "this": lambda: kernels.exclusive_scan(deg)},
+        "parse_bytes": {
+            "parent": lambda: pkernels.parse_bytes(bufs, os_, oe,
+                                                   weighted=False, base=1),
+            "this": lambda: kernels.parse_bytes(bufs, os_, oe,
+                                                weighted=False, base=1)},
+        "parse_accumulate": {
+            who: (lambda mod, a: lambda: mod.parse_accumulate(
+                a[0], a[1], None, zero, bufs, os_, oe, weighted=False,
+                base=1, edge_bound=bound))(mod, accs[who])
+            for who, mod in (("parent", pparse), ("this", parse))},
+    }
+    out = {}
+    for name, pair in fns.items():
+        a, b = pair["parent"](), pair["this"]()
+        torch.cuda.synchronize()
+        if name == "parse_bytes":
+            check_bytes([t.cpu() if t is not None else None for t in b],
+                        [t.cpu() if t is not None else None for t in a],
+                        False, "parent vs this: parse_bytes")
+        else:
+            require(all(torch.equal(x, y) for x, y in zip(a, b)
+                        if x is not None), f"parent vs this: {name}")
+        turns = []
+        for who in ("parent", "this", "this", "parent"):
+            turns.append(dict(who=who, **timed(torch, pair[who])))
+        out[name] = {who: {k: sum(t[k] for t in turns if t["who"] == who) / 2
+                           for k in ("ms", "device_ms")}
+                     for who in ("parent", "this")}
+        out[name]["turns"] = turns
+    report["parent"] = out
+    say(json.dumps({"parent": out}))
 
 
 def phase_breakdown(torch, repro_torch, path22, report):
@@ -763,7 +925,16 @@ def phase_profile(torch, repro_torch, path22, report):
     top = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA),
                  key=device_us, reverse=True)
+    calls = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            calls[e.key] = calls.get(e.key, 0) + e.count
+    watched = ("parse_accumulate_kernel", "parse_bytes_kernel",
+               "index_elementwise_kernel", "exclusive_scan_kernel",
+               "degree_histogram_kernel", "Memset")
     row = {"wall_s": wall, "device_events": len(on_card),
+           "calls_of": {w: sum(c for k, c in calls.items() if w in k)
+                        for w in watched},
            "device_busy_s": busy, "device_busy_share": busy / wall,
            "device_idle_share": 1 - busy / wall,
            "device_time_summed_s": summed,
@@ -774,10 +945,20 @@ def phase_profile(torch, repro_torch, path22, report):
 
 
 def main() -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another commit whose scan, parse "
+                         "and parse + packing to time in turns with these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no repro_torch package under {ROOT}/src; run "
+              f"the script from the root of a checkout", file=sys.stderr)
+        return 3
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch
     from repro_torch import kernels
@@ -823,10 +1004,13 @@ def main() -> int:
     consumers = phase_consumers(torch, repro_torch, kernels, p22, s22,
                                 oracle22, report)
     del oracle22
-    phase_kernels(torch, repro_torch, kernels, p22, v22,
-                  {r["method"]: r["launches"] for r in runs[:3]}, consumers,
-                  report)
+    inputs = phase_kernels(torch, repro_torch, kernels, p22, v22,
+                           {r["method"]: r["launches"] for r in runs[:3]},
+                           consumers, report)
     del consumers
+    if args.parent:
+        phase_parent(torch, kernels, args.parent, inputs, report)
+    del inputs
     torch.cuda.empty_cache()
     phase_breakdown(torch, repro_torch, p22, report)
     phase_profile(torch, repro_torch, p22, report)

@@ -12,10 +12,11 @@ accumulators and hands them to the rank-based CSR builders:
      on a side stream and records an event; the parse stream waits on the
      event, and the arena slot is fenced with it, so the prefetch thread
      never refills a slot whose copy is still in flight;
-  3. each batch runs the ``parse_bytes`` kernel over the span (rows
-     ``beta`` apart) and packs its edges into the accumulators at the
-     device-resident running total (``parse.parse_accumulate``), with no
-     host sync; the short tail batch is parsed at its own size;
+  3. each batch runs the fused ``parse_accumulate`` kernel over the span
+     (rows ``beta`` apart), which parses it and packs its edges into the
+     accumulators at the device-resident running total
+     (``parse.parse_accumulate``), with no host sync; the short tail batch
+     is parsed at its own size;
   4. the host syncs once for the edge count and once for the vertex
      count, shrinks the buffers to a power-of-two prefix, and builds the
      CSR on the card (``build.csr_staged`` by default).

@@ -1,14 +1,17 @@
 """Edgelist parsing on the card (GVEL Algorithm 1).
 
-The port of ``repro/core/parse.py``.  The per-byte parse is the
-``parse_bytes`` kernel (``kernels.parse_edges``; its plain PyTorch version
-is ``_parse_block_bytes`` here).  Around it, plain tensor code:
+The port of ``repro/core/parse.py``, over the kernels of
+``kernels.parse_edges``:
 
 * :func:`parse_accumulate` -- the streaming loader's step: a batch of
   blocks in, its edges packed into the accumulators at the device-resident
-  running ``total`` (``_compact_accumulate``), with no host sync;
+  running ``total``, with no host sync: ``kernels.parse_accumulate``, on
+  CUDA one fused kernel that parses and packs, on the CPU its plain
+  version (the per-byte parse ``_parse_block_bytes``, then
+  ``kernels.parse_edges.ref.compact_accumulate_ref``);
 * :func:`parse_block` / :func:`parse_blocks` -- block in, fixed-capacity
-  per-block ``(src, dst, w, count)`` out.
+  per-block ``(src, dst, w, count)`` out: the ``parse_bytes`` kernel, then
+  the per-block compaction in torch ops.
 
 The accumulators are updated **in place** (the reference donates them to
 the same effect); callers keep using the tensors they passed.
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.parse_edges import parse_bytes
+from ..kernels.parse_edges import parse_accumulate, parse_bytes
 from ..kernels.parse_edges.ref import parse_bytes_ref as _parse_block_bytes
 
 I32 = torch.int32
@@ -27,51 +30,7 @@ I32 = torch.int32
 CALLS = {"parse_blocks": 0}
 
 __all__ = ["parse_accumulate", "parse_block", "parse_blocks",
-           "make_accumulators", "_parse_block_bytes", "_compact_accumulate"]
-
-
-def _compact_accumulate(acc_src, acc_dst, acc_w, total, valid, src, dst, w,
-                        *, edge_bound: int):
-    """Pack a batch of per-byte parses into the accumulators at ``total``.
-
-    ``valid``/``src``/``dst``/``w`` are ``(nb, blen)`` byte-domain parses.
-    Blocks pack consecutively and edges within a block stay in line order.
-    A window of ``edge_bound`` slots is written at ``total`` (invalid slots
-    carry the padding values); the caller guarantees ``total + edge_bound
-    <= capacity``.  Returns the accumulators and the new ``total``.
-    """
-    dev = valid.device
-    valid_f = valid.reshape(-1)
-    flat_n = valid_f.shape[0]
-    dest = torch.cumsum(valid_f, 0, dtype=I32) - 1
-    count = (dest[-1] + 1).clamp(min=0)
-    # one scatter packs byte positions (slot edge_bound is the drop bin)
-    slot = torch.where(valid_f & (dest < edge_bound), dest, edge_bound)
-    pos = torch.full((edge_bound + 1,), flat_n, dtype=I32, device=dev)
-    pos.index_put_((slot.long(),), torch.arange(flat_n, dtype=I32,
-                                                device=dev))
-    pos = pos[:edge_bound]
-    pv = pos < flat_n
-    posc = pos.clamp(max=flat_n - 1).long()
-    window = total.long() + torch.arange(edge_bound, device=dev)
-    acc_src[window] = torch.where(pv, src.reshape(-1)[posc], -1)
-    acc_dst[window] = torch.where(pv, dst.reshape(-1)[posc], -1)
-    if acc_w is not None and w is not None:
-        acc_w[window] = torch.where(pv, w.reshape(-1)[posc], 0.0)
-    return acc_src, acc_dst, acc_w, total + count
-
-
-def parse_accumulate(acc_src, acc_dst, acc_w, total, bufs, owned_start: int,
-                     owned_end: int, *, weighted: bool, base: int,
-                     edge_bound: int):
-    """Parse ``bufs`` ``(nb, buf_len)`` and write the batch's edges into
-    the packed accumulators at ``total`` (in place); returns
-    ``(acc_src, acc_dst, acc_w, total)``.  The caller guarantees ``total +
-    edge_bound <= len(acc_src)``."""
-    valid, src, dst, w = parse_bytes(bufs, owned_start, owned_end,
-                                     weighted=weighted, base=base)
-    return _compact_accumulate(acc_src, acc_dst, acc_w, total, valid, src,
-                               dst, w, edge_bound=edge_bound)
+           "make_accumulators", "_parse_block_bytes"]
 
 
 def _compact_blocks(valid, src_b, dst_b, w_b, *, edge_cap: int):

@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", *ARCH_FLAGS, "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 MIN_CAPABILITY = (9, 0)
 
-LAUNCHES = {"parse_bytes": 0, "exclusive_scan": 0, "degree_histogram": 0,
-            "neighbor_gather": 0}
+LAUNCHES = {"parse_bytes": 0, "parse_accumulate": 0, "exclusive_scan": 0,
+            "degree_histogram": 0, "neighbor_gather": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -43,8 +43,12 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "repro_parse_bytes": ([_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                            _P, _P, _P, _P, _P], ctypes.c_int),
-    "repro_exclusive_scan_tiles": ([_I64], _I64),
-    "repro_exclusive_scan": ([_P, _I64, _P, _P, _P, _P], ctypes.c_int),
+    "repro_parse_accumulate_scratch_bytes": ([_I64, _I64, _I64, _I64], _I64),
+    "repro_parse_accumulate": ([_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                                _P, _P, _P, _I64, _P, _P, _I64, _P, _P],
+                               ctypes.c_int),
+    "repro_exclusive_scan_scratch_bytes": ([_I64], _I64),
+    "repro_exclusive_scan": ([_P, _I64, _P, _P, _P], ctypes.c_int),
     "repro_degree_histogram": ([_P, _I64, _P, _I64, _P], ctypes.c_int),
     "repro_neighbor_gather": ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _P,
                                _I64, _P], ctypes.c_int),

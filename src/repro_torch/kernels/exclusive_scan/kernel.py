@@ -1,7 +1,8 @@
-"""Launch of the ``exclusive_scan`` CUDA kernels (``csrc/exclusive_scan.cu``).
+"""Launch of the ``exclusive_scan`` CUDA kernel (``csrc/exclusive_scan.cu``).
 
 Replaces ``repro/kernels/exclusive_scan/kernel.py:38``
-``exclusive_scan_kernel``.
+``exclusive_scan_kernel``.  One memset of the look-back scratch and one
+single-pass kernel per call.
 """
 from __future__ import annotations
 
@@ -10,17 +11,15 @@ import torch
 from .. import _lib
 
 
-def exclusive_scan_kernel(x: torch.Tensor):
-    """``(exclusive prefix sums (N,), total ())`` of a contiguous CUDA int32
-    vector with N > 0."""
+def exclusive_scan_kernel(x: torch.Tensor) -> torch.Tensor:
+    """``(N+1,)`` int32 for a contiguous CUDA int32 vector with N > 0: the
+    exclusive prefix sums in ``[0, N)``, the total at ``N``."""
     n = x.shape[0]
     lib = _lib.lib()
-    out = torch.empty_like(x)
-    total = torch.empty((), dtype=torch.int32, device=x.device)
-    tile_sums = torch.empty(lib.repro_exclusive_scan_tiles(n),
-                            dtype=torch.int32, device=x.device)
+    out = torch.empty(n + 1, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(lib.repro_exclusive_scan_scratch_bytes(n),
+                          dtype=torch.uint8, device=x.device)
     status = lib.repro_exclusive_scan(x.data_ptr(), n, out.data_ptr(),
-                                      total.data_ptr(), tile_sums.data_ptr(),
-                                      _lib.stream_of(x))
+                                      scratch.data_ptr(), _lib.stream_of(x))
     _lib.check(status, "exclusive_scan launch")
-    return out, total
+    return out

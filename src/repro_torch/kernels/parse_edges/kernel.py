@@ -30,3 +30,28 @@ def parse_bytes_kernel(bufs: torch.Tensor, owned_start: int, owned_end: int,
         _lib.stream_of(bufs))
     _lib.check(status, "parse_bytes launch")
     return valid, src, dst, w
+
+
+def parse_accumulate_kernel(acc_src, acc_dst, acc_w, total, bufs,
+                            owned_start: int, owned_end: int, *,
+                            weighted: bool, base: int, edge_bound: int):
+    """Parse a CUDA ``(nb, buf_len)`` uint8 view (unit column stride) and
+    pack its edges into the accumulators at the device-resident ``total``
+    (in place).  Returns the new total, a fresh 0-d int32 tensor: every CTA
+    reads ``total``, so it is never overwritten."""
+    nb, buf_len = bufs.shape
+    lib = _lib.lib()
+    scratch = torch.empty(
+        lib.repro_parse_accumulate_scratch_bytes(nb, buf_len,
+                                                 int(owned_start),
+                                                 int(owned_end)),
+        dtype=torch.uint8, device=bufs.device)
+    total_out = torch.empty((), dtype=torch.int32, device=bufs.device)
+    status = lib.repro_parse_accumulate(
+        bufs.data_ptr(), bufs.stride(0), nb, buf_len, int(owned_start),
+        int(owned_end), int(base), int(bool(weighted)), acc_src.data_ptr(),
+        acc_dst.data_ptr(), None if acc_w is None else acc_w.data_ptr(),
+        acc_src.shape[0], total.data_ptr(), total_out.data_ptr(),
+        int(edge_bound), scratch.data_ptr(), _lib.stream_of(bufs))
+    _lib.check(status, "parse_accumulate launch")
+    return total_out

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the ``parse_bytes`` kernel.
+"""Plain PyTorch versions of the ``parse_bytes`` and ``parse_accumulate``
+kernels.
 
 The byte algebra of ``repro/core/parse.py::_parse_block_bytes``, operation
 for operation, vectorised over the last dimension (so one call covers a
@@ -114,3 +115,47 @@ def parse_bytes_ref(bufs: torch.Tensor, owned_start: int, owned_end: int, *,
         wf = torch.where(at(minus_pos, p2c) >= w_start, -wf, wf)
         w = torch.where(p2 > pex, wf, torch.ones_like(wf))
     return valid, src, dst, w
+
+
+def compact_accumulate_ref(acc_src, acc_dst, acc_w, total, valid, src, dst,
+                           w, *, edge_bound: int):
+    """Pack a batch of per-byte parses into the accumulators at ``total``:
+    the reference's ``repro/core/parse.py::_compact_accumulate``.
+
+    ``valid``/``src``/``dst``/``w`` are ``(nb, blen)`` byte-domain parses.
+    Blocks pack consecutively and edges within a block stay in line order.
+    A window of ``edge_bound`` slots is written at ``total`` (invalid slots
+    carry the padding values); the caller guarantees ``total + edge_bound
+    <= capacity``.  Returns the accumulators (updated in place) and the new
+    ``total``.
+    """
+    dev = valid.device
+    valid_f = valid.reshape(-1)
+    flat_n = valid_f.shape[0]
+    dest = torch.cumsum(valid_f, 0, dtype=I32) - 1
+    count = (dest[-1] + 1).clamp(min=0)
+    # one scatter packs byte positions (slot edge_bound is the drop bin)
+    slot = torch.where(valid_f & (dest < edge_bound), dest, edge_bound)
+    pos = torch.full((edge_bound + 1,), flat_n, dtype=I32, device=dev)
+    pos.index_put_((slot.long(),), torch.arange(flat_n, dtype=I32,
+                                                device=dev))
+    pos = pos[:edge_bound]
+    pv = pos < flat_n
+    posc = pos.clamp(max=flat_n - 1).long()
+    window = total.long() + torch.arange(edge_bound, device=dev)
+    acc_src[window] = torch.where(pv, src.reshape(-1)[posc], -1)
+    acc_dst[window] = torch.where(pv, dst.reshape(-1)[posc], -1)
+    if acc_w is not None and w is not None:
+        acc_w[window] = torch.where(pv, w.reshape(-1)[posc], 0.0)
+    return acc_src, acc_dst, acc_w, total + count
+
+
+def parse_accumulate_ref(acc_src, acc_dst, acc_w, total, bufs,
+                         owned_start: int, owned_end: int, *, weighted: bool,
+                         base: int, edge_bound: int):
+    """Plain version of the fused ``parse_accumulate`` kernel: the per-byte
+    parse, then :func:`compact_accumulate_ref`."""
+    valid, src, dst, w = parse_bytes_ref(bufs, owned_start, owned_end,
+                                         weighted=weighted, base=base)
+    return compact_accumulate_ref(acc_src, acc_dst, acc_w, total, valid, src,
+                                  dst, w, edge_bound=edge_bound)

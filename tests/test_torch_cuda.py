@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import repro_torch
+import torch_inputs as ti
 from repro_torch import kernels
 from repro_torch.core import CSR, parse
 from repro_torch.core.build import csr_np
@@ -25,7 +26,7 @@ from repro_torch.data.corpus import CorpusConfig, WalkCorpus
 pytestmark = pytest.mark.cuda
 
 # the kernels a load runs; neighbor_gather serves the CSR's consumers
-LOAD_KERNELS = ("parse_bytes", "exclusive_scan", "degree_histogram")
+LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram")
 
 
 @pytest.fixture
@@ -104,14 +105,108 @@ def test_parse_bytes_hazards(cuda_device):
     _assert_bytes_equal([t.cpu() for t in got], want, True)
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 1 << 20])
+@pytest.mark.parametrize("owned", [ti.OWNED, (0, ti.ROW_LEN),
+                                   (100, ti.ROW_LEN - 37)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_parse_bytes_tile_rows(cuda_device, weighted, owned):
+    """The tile design's hazards (``tests/torch_inputs.py``), as rows and
+    as the loader's aliased span."""
+    rows = ti.tile_rows(2, weighted)
+    span = torch.from_numpy(ti.flat_span(rows))
+    for flat, shape in ((torch.from_numpy(rows), None),
+                        (span, (ti.BETA, 1))):
+        want = kernels.parse_bytes(
+            flat if shape is None else flat.as_strided(rows.shape, shape),
+            *owned, weighted=weighted, base=1)
+        card = flat.to(cuda_device)
+        got = kernels.parse_bytes(
+            card if shape is None else card.as_strided(rows.shape, shape),
+            *owned, weighted=weighted, base=1)
+        _assert_bytes_equal([t.cpu() if t is not None else None
+                             for t in got], want, weighted)
+
+
+def _garbage(cap, seed, weighted, device):
+    s, d, w = ti.garbage_accumulators(cap, seed, weighted)
+    return (torch.from_numpy(s).to(device), torch.from_numpy(d).to(device),
+            None if w is None else torch.from_numpy(w).to(device))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_parse_accumulate_tile_rows_match_cpu(cuda_device, weighted):
+    """Three batches of two aliased rows into garbage accumulators, from a
+    non-zero total, 20 times over: bitwise the CPU path each time, one
+    launch per batch, and the input total left as it was."""
+    rows = ti.tile_rows(4, weighted)
+    span = torch.from_numpy(ti.flat_span(rows))
+    bound = 2 * (ti.ROW_LEN // 4 + 2)
+    cap = 11 + 3 * bound + 50
+    batches = [span[lo * ti.BETA:(lo + 1) * ti.BETA + ti.ROW_LEN]
+               for lo in (0, 2, 4)]
+
+    def run(device):
+        acc = (*_garbage(cap, 4, weighted, device),
+               torch.tensor(11, dtype=torch.int32, device=device))
+        for flat in batches:
+            bufs = flat.to(device).as_strided((2, ti.ROW_LEN), (ti.BETA, 1))
+            before = acc[3]
+            acc = kernels.parse_accumulate(*acc, bufs, *ti.OWNED,
+                                           weighted=weighted, base=1,
+                                           edge_bound=bound)
+            assert int(before) <= int(acc[3])
+        return [t.cpu() for t in acc if t is not None]
+
+    want = run("cpu")
+    for _ in range(20):
+        kernels.reset_launches()
+        got = run(cuda_device)
+        assert kernels.LAUNCHES["parse_accumulate"] == 3
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("bound", [0, 37])
+def test_parse_accumulate_drops_past_edge_bound(cuda_device, bound):
+    rows = torch.from_numpy(ti.tile_rows(5, True)[:2])
+    outs = []
+    for device in ("cpu", cuda_device):
+        acc = (*_garbage(200, 5, True, device),
+               torch.tensor(3, dtype=torch.int32, device=device))
+        acc = kernels.parse_accumulate(*acc, rows.to(device), *ti.OWNED,
+                                       weighted=True, base=1,
+                                       edge_bound=bound)
+        outs.append([t.cpu() for t in acc])
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_csr_offsets_returns_the_scan_buffer(cuda_device, monkeypatch):
+    deg = torch.from_numpy(ti.scan_input(10000, 7)).to(cuda_device)
+    want = kernels.csr_offsets(deg.cpu())
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("csr_offsets copied through torch.cat")
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = kernels.csr_offsets(deg)
+    assert got.shape == (10001,) and got.untyped_storage().nbytes() == 40004
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, ti.SCAN_TILE - 1,
+                               ti.SCAN_TILE, ti.SCAN_TILE + 1, 1 << 20,
+                               1 << 22, 1 << 26])
 def test_exclusive_scan(cuda_device, n):
-    x = torch.randint(0, 1000, (n,), dtype=torch.int32, device=cuda_device)
-    kernels.reset_launches()
-    excl, total = kernels.exclusive_scan(x)
-    assert kernels.LAUNCHES["exclusive_scan"] == 1
+    """One kernel per call writes the prefix and the total into one
+    ``(N+1,)`` buffer; 20 calls in a row, each bitwise (a stale look-back
+    read would show as a tile off by one tile's sum now and then)."""
+    x = torch.from_numpy(ti.scan_input(n, n, wrap=n > 4096)).to(cuda_device)
     w_excl, w_total = kernels.exclusive_scan_ref(x)
-    assert torch.equal(excl, w_excl) and torch.equal(total, w_total)
+    for _ in range(20):
+        kernels.reset_launches()
+        excl, total = kernels.exclusive_scan(x)
+        assert kernels.LAUNCHES["exclusive_scan"] == 1
+        assert torch.equal(excl, w_excl) and torch.equal(total, w_total)
+        assert total.data_ptr() == excl.data_ptr() + 4 * n
 
 
 def test_exclusive_scan_wraps(cuda_device):

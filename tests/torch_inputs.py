@@ -1,0 +1,213 @@
+"""Inputs built against the tile design of the port's parse and scan kernels.
+
+Plain numpy from a seed, no jax: ``tests/test_torch_parse_tiles.py`` feeds
+them to the JAX package and to the port's plain versions on the CPU, and
+``tests/test_torch_cuda.py`` feeds the same inputs to the kernels on the
+card.  pytest does not collect this module (its name has no ``test_``).
+
+The geometry mirrors ``src/repro_torch/csrc``: ``parse_edges.cu`` cuts each
+row's region into tiles of ``PARSE_TILE`` bytes and reads a ``PARSE_HALO``
+of bytes before each tile; ``exclusive_scan.cu`` scans tiles of
+``SCAN_TILE`` int32.
+"""
+import numpy as np
+
+PARSE_TILE = 3840
+PARSE_HALO = 256
+SCAN_TILE = 4096
+
+# one row shape for every parse case: a beta of 16 KiB plus the loader's
+# 64-byte overlap, so the rows cover several parse tiles and two multiples
+# of 8,192 bytes
+OVERLAP = 64
+BETA = 16384
+ROW_LEN = BETA + OVERLAP
+OWNED = (OVERLAP, OVERLAP + BETA)
+
+# lines the parse must get right wherever they fall
+HAZARDS = (
+    b"12345678901 2",          # token value wraps in int32
+    b"1 2 123456789.123",      # weight mantissa wraps
+    b"3 4 1.2.5",              # fraction after the LAST dot
+    b"1 2 7-2",                # a minus anywhere negates
+    b"1 2 -",                  # lone minus -> -0.0
+    b"5 6",                    # missing weight -> 1.0
+    b"# c 1 2",                # bad byte: dropped
+    b"1 2 3 4",                # tokens past the third ignored
+    b"7 8\r",                  # CRLF
+    b"\t9\t10  2.50 ",         # tabs and blanks
+    b"abc", b"1 x 2", b"", b".", b"-",   # garbage, blank, one-token lines
+)
+
+
+def _line(rng, weighted: bool) -> bytes:
+    """One random line: mostly edges, sometimes a hazard."""
+    if rng.random() < 0.15:
+        return HAZARDS[int(rng.integers(0, len(HAZARDS)))]
+    u, v = rng.integers(0, 10 ** int(rng.integers(1, 10)), 2)
+    sep = b"\t" if rng.random() < 0.1 else b" "
+    text = str(u).encode() + sep + str(v).encode()
+    if weighted:
+        w = rng.normal() * 10.0 ** int(rng.integers(0, 4))
+        text += b" " + f"{w:.{int(rng.integers(0, 6))}f}".encode()
+    if rng.random() < 0.1:
+        text += b"\r"
+    return text
+
+
+def _filler(rng, n: int, weighted: bool) -> bytes:
+    """Exactly ``n`` bytes of whole lines (a remainder under 4 bytes is
+    blanks that lead the next line)."""
+    out = bytearray()
+    while n - len(out) >= 8:
+        line = _line(rng, weighted)[: n - len(out) - 1] + b"\n"
+        out += line
+    rest = n - len(out)
+    if rest >= 4:
+        out += b"1 2" + b" " * (rest - 4) + b"\n"
+    else:
+        out += b" " * rest
+    return bytes(out)
+
+
+def tile_boundaries(row_len: int = ROW_LEN, owned_start: int = OVERLAP):
+    """Row offsets where a tile or its halo starts, for both entry points
+    (``parse_bytes`` tiles the whole row, ``parse_accumulate`` the owned
+    range), and every multiple of 256 bytes (so of 512, 1,024, 4,096 and
+    8,192 too)."""
+    marks = set(range(256, row_len, 256))
+    for origin in (0, owned_start):
+        for lo in range(origin + PARSE_TILE, row_len, PARSE_TILE):
+            marks.update((lo, lo - PARSE_HALO))
+    return sorted(marks)
+
+
+def _place(rng, weighted: bool, row_len: int, special) -> np.ndarray:
+    """A row of random lines with ``special(mark)`` -> ``(line, at)`` put so
+    that byte ``at`` of ``line`` lands on each mark of
+    :func:`tile_boundaries`.  Special lines are at most 30 bytes and the
+    marks at least 64 apart, so every mark gets its line."""
+    out = bytearray()
+    for mark in tile_boundaries(row_len):
+        line, at = special(mark)
+        gap = mark - at - len(out)
+        assert gap >= 0
+        out += _filler(rng, gap, weighted) + line
+    out += _filler(rng, row_len - len(out), weighted)
+    return np.frombuffer(bytes(out[:row_len]), np.uint8).copy()
+
+
+def _short_line(rng, weighted: bool) -> bytes:
+    line = _line(rng, weighted).rstrip(b"\r")[:24]
+    return line if len(line) >= 2 else b"3 4"
+
+
+def straddle_row(rng, weighted: bool, row_len: int = ROW_LEN) -> np.ndarray:
+    """A row in which a line runs across every mark of
+    :func:`tile_boundaries`: the mark falls on a random byte of it that is
+    neither its newline nor its first byte."""
+    def special(_mark):
+        line = _short_line(rng, weighted) + b"\n"
+        return line, int(rng.integers(1, len(line) - 1))
+    return _place(rng, weighted, row_len, special)
+
+
+EDGE_KINDS = ("crlf_split", "cr_first", "nl_first", "nl_before")
+
+
+def edge_row(rng, weighted: bool, row_len: int = ROW_LEN) -> np.ndarray:
+    """A row whose marks take turns at a CRLF split across the mark
+    (``\\r`` before it, ``\\n`` on it), a CR on the mark, a newline on the
+    mark, and a newline just before it."""
+    kinds = iter(range(10**6))
+
+    def special(_mark):
+        line = _short_line(rng, weighted)
+        kind = EDGE_KINDS[next(kinds) % len(EDGE_KINDS)]
+        if kind == "crlf_split":
+            return line + b"\r\n", len(line) + 1
+        if kind == "cr_first":
+            return line + b"\r\n", len(line)
+        if kind == "nl_first":
+            return line + b"\n", len(line)
+        return line + b"\n", len(line) + 1
+    return _place(rng, weighted, row_len, special)
+
+
+def long_line_row(rng, weighted: bool, row_len: int = ROW_LEN) -> np.ndarray:
+    """A row whose lines are longer than the halo: one starts 2.5 tiles
+    before its newline (whole tiles hold no newline), one is 300 bytes, and
+    one ends on the last owned byte."""
+    long1 = b"17" + b" " * int(2.5 * PARSE_TILE) + b"42 3.25\n"
+    long2 = b"5" + b"\t" * 290 + b"6 -0.5\n"
+    head = _filler(rng, 700, weighted) + long1 + _filler(rng, 333, weighted)
+    body = head + long2
+    tail_len = row_len - len(body)
+    tail = _filler(rng, tail_len - 400, weighted) + b"8" + b" " * 397 + b"9\n"
+    row = body + tail
+    assert len(row) == row_len and row[-1:] == b"\n"
+    return np.frombuffer(row, np.uint8).copy()
+
+
+def no_newline_row(row_len: int = ROW_LEN) -> np.ndarray:
+    """A row of edge-like text without one newline."""
+    text = (b"123 456 7.5 " * (row_len // 12 + 1))[:row_len]
+    return np.frombuffer(text, np.uint8).copy()
+
+
+def owned_edge_row(rng, weighted: bool, owned=OWNED,
+                   row_len: int = ROW_LEN) -> np.ndarray:
+    """Newlines on the first owned byte and on the last owned byte, each
+    ending an edge line."""
+    lo, hi = owned
+    first = b"21 22\n"
+    head = _filler(rng, lo - len(first) + 1, weighted) + first
+    last = b"31 32 0.125\n"
+    mid = _filler(rng, hi - len(head) - len(last), weighted)
+    row = head + mid + last + _filler(rng, row_len - hi, weighted)
+    assert row[lo] == 10 and row[hi - 1] == 10 and len(row) == row_len
+    return np.frombuffer(row, np.uint8).copy()
+
+
+def tile_rows(seed: int, weighted: bool) -> np.ndarray:
+    """``(6, ROW_LEN)`` uint8: a straddle row, an edge row, the long-line
+    row, the no-newline row, the owned-edge row and one more straddle
+    row."""
+    rng = np.random.default_rng(seed)
+    return np.stack([straddle_row(rng, weighted), edge_row(rng, weighted),
+                     long_line_row(rng, weighted), no_newline_row(),
+                     owned_edge_row(rng, weighted),
+                     straddle_row(rng, weighted)])
+
+
+def flat_span(rows: np.ndarray, beta: int = BETA) -> np.ndarray:
+    """The loader's flat span for rows that alias: row b is bytes
+    ``[b * beta, b * beta + ROW_LEN)``.  Each row keeps its own bytes and
+    lends its last ``ROW_LEN - beta`` to the next row's unowned prefix, so
+    parse the strided view of the span, not ``rows``."""
+    nb, n = rows.shape
+    span = np.full((nb - 1) * beta + n, 10, np.uint8)
+    for b in reversed(range(nb)):
+        span[b * beta: b * beta + n] = rows[b]
+    return span
+
+
+# scan lengths around the kernel's tile
+SCAN_SIZES = (1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 3 * SCAN_TILE + 7)
+
+
+def scan_input(n: int, seed: int, wrap: bool = False) -> np.ndarray:
+    """int32 degrees; with ``wrap`` their sum passes 2**32 several times."""
+    rng = np.random.default_rng(seed)
+    hi = 2**30 if wrap else 1000
+    return rng.integers(0, hi, n).astype(np.int32)
+
+
+def garbage_accumulators(cap: int, seed: int, weighted: bool):
+    """Accumulators that hold garbage everywhere (not the fresh -1 / -1 /
+    0.0), to pin that a batch writes its whole window and nothing else."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-2**31, 2**31, cap).astype(np.int32)
+    dst = rng.integers(-2**31, 2**31, cap).astype(np.int32)
+    w = rng.normal(size=cap).astype(np.float32) if weighted else None
+    return src, dst, w
