@@ -13,7 +13,10 @@ Phases (any failure exits non-zero):
 
 1. build the kernels and hold each against its plain PyTorch version on
    small inputs (``parse_accumulate`` over three batches into garbage
-   accumulators, weighted and not);
+   accumulators, weighted and not; the histogram on sorted runs, padded
+   partitions, sizes around its chunk and tile, views at every 4-byte
+   alignment and 2-D rows; the gather at widths 5, 33, 128 and 1000 with
+   batches around its group of 32 ids);
 2. make RMAT text graphs with Graph500's parameters from a seed: scale 22
    (4,194,304 vertices, 67,108,864 edges, 1-based), a weighted scale-18
    file and a gzip scale-18 file; cached under ``build/repro_torch``;
@@ -42,15 +45,18 @@ Phases (any failure exits non-zero):
    included), and ``device_ms``, the summed duration of the device
    kernels and memsets of a window of calls in ``torch.profiler``, per
    call (``library_device_ms`` likewise for the library call).  The
-   histogram on both of its inputs, the ``staged`` build's sorted
-   partitions and the stream-order ids of ``global`` and ``binned``;
+   histogram on both of its inputs, per load: the ``staged`` build's
+   sorted partitions in one 2-D call and the stream-order ids of
+   ``global`` and ``binned`` in one 1-D call;
    ``parse_accumulate`` at one main-path batch against its plain path;
    ``parse_blocks`` (the parse kernel plus the per-block compaction) at
    the same batch against its CPU run; ``neighbor_gather`` on both of its
    inputs.  With ``--parent DIR`` (a checkout of another commit, e.g. a
    ``git archive`` of the parent), DIR's port is imported under another
-   name, and its scan, parse and parse + packing are timed on the same
-   inputs in turns with this tree's (parent, this, this, parent);
+   name, and its scan, parse, parse + packing, histogram (on both inputs),
+   ``staged`` build and gather (on both inputs) are timed on the same
+   inputs in turns with this tree's (parent, this, this, parent), each
+   pair bitwise equal;
 5. a breakdown of one scale-22 load: host staging alone, stage + copy +
    parse (the stream), parse alone on device-resident bytes, the build;
    then one load traced with ``torch.profiler`` for the device's busy
@@ -294,11 +300,14 @@ def phase_build(torch, kernels, report):
     require(torch.equal(kernels.csr_offsets(x.to(dev)).cpu(),
                         torch.cat([want[0], want[1][None]])),
             "csr_offsets (small)")
-    s = torch.randint(-1, 300, (20000,), dtype=torch.int32, generator=g)
-    require(torch.equal(kernels.degree_histogram(s.to(dev),
-                                                 num_vertices=257).cpu(),
-                        kernels.degree_histogram_ref(s, num_vertices=257)),
-            "degree_histogram (small)")
+    for what, s in hist_hazards(torch, g):
+        for offset in range(4):     # views at every 4-byte alignment
+            card = torch.cat([s.new_zeros(offset), s.reshape(-1)]).to(
+                dev)[offset:].view(s.shape)
+            require(torch.equal(
+                kernels.degree_histogram(card, num_vertices=257).cpu(),
+                kernels.degree_histogram_ref(s, num_vertices=257)),
+                f"degree_histogram (small, {what}, offset {offset})")
     # out-of-range and negative ids, E < width, degrees above width
     for v, e, width in ((9, 5, 16), (300, 5000, 8)):
         src = torch.randint(0, v, (e,), generator=g)
@@ -315,7 +324,57 @@ def phase_build(torch, kernels, report):
             require(torch.equal(got[0].cpu(), want[0])
                     and torch.equal(got[1].cpu(), want[1]),
                     f"neighbor_gather (small, V={v}, {o.dtype})")
+    # every width path, groups of 32 ids cut short, rows at every lo % 4,
+    # a hot row far wider than the width
+    v, e = 70, 6000
+    deg = torch.randint(0, 120, (v,), generator=g)
+    deg[::5] = 0
+    deg[v // 2] = 3000
+    off = torch.zeros(v + 1, dtype=torch.int64)
+    off[1:] = torch.cumsum(deg, 0)
+    require(len(set((off[:-1] % 4).tolist())) == 4, "lo % 4 coverage")
+    tgt = torch.randint(0, v, (int(off[-1]),), dtype=torch.int32,
+                        generator=g)
+    ids = torch.cat([torch.arange(-v - 3, v + 4), torch.tensor(
+        [-2**31, 2**31 - 1, v // 2, v // 2])]).int()
+    ids = ids[torch.randperm(len(ids), generator=g)]
+    for width in (5, 33, 128, 1000):
+        for b in (1, 31, 33, len(ids)):
+            want = kernels.neighbor_gather_ref(ids[:b], off, tgt, width=width)
+            for o in (off, off.int()):
+                got = kernels.neighbor_gather(ids[:b].to(dev), o.to(dev),
+                                              tgt.to(dev), width=width)
+                require(torch.equal(got[0].cpu(), want[0])
+                        and torch.equal(got[1].cpu(), want[1]),
+                        f"neighbor_gather (width {width}, B={b}, "
+                        f"{o.dtype})")
     say("phase 1: kernels build and agree with their plain versions")
+
+
+def hist_hazards(torch, g):
+    """Small histogram inputs against ``degree_histogram.cu``'s geometry
+    (16 ids a thread, 512 a warp, 4,096 a tile): sorted runs across every
+    boundary, one id repeated, sorted rows that end in a run of the
+    padding key V (257) with -1 and ids >= V inside, stream order, and
+    sizes around the chunk and the tile; with the 2-D rows."""
+    lengths = torch.randint(1, 700, (60,), generator=g)
+    ids = torch.sort(torch.randint(-1, 260, (60,), generator=g)).values
+    runs = torch.repeat_interleave(ids, lengths).int()
+    yield "sorted runs", runs
+    yield "one id", torch.full((9000,), 3, dtype=torch.int32)
+    yield "one id = V", torch.full((5000,), 257, dtype=torch.int32)
+    padded = torch.cat([runs, torch.full((999,), 257)]).int()
+    yield "padded partition", padded
+    for e in (1, 15, 16, 17, 4095, 4096, 4097, 20000):
+        x = torch.randint(-1, 300, (e,), dtype=torch.int32, generator=g)
+        yield f"stream E={e}", x
+        yield f"sorted E={e}", torch.sort(x).values
+    for rho in (1, 3, 4, 8):
+        rows = torch.randint(-1, 260, (rho, 1027), dtype=torch.int32,
+                             generator=g)
+        rows = torch.cat([torch.sort(rows, dim=1).values,
+                          torch.full((rho, 400), 257, dtype=torch.int32)], 1)
+        yield f"{rho} rows of 1,427", rows
 
 
 def require(ok: bool, what: str) -> None:
@@ -647,46 +706,50 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     del acc
 
     # the build's inputs: the shrunk source buffer and its degrees
-    (src, _dst, _w, total), _cap = repro_torch.open_graph(path22).stream()
+    (src, dst, _w, total), _cap = repro_torch.open_graph(path22).stream()
     n = int(total)
     cap2 = 1 << max(n - 1, 1).bit_length()
-    src2 = src[:cap2].contiguous()
-    del _dst
+    src2, dst2 = src[:cap2].contiguous(), dst[:cap2].contiguous()
+    del src, dst
     # the histogram's two inputs on the path, each with its launches and
-    # times summed over one load: `staged` (the default) counts rho sorted
-    # partitions, one launch each; `global` and `binned` count the ids in
-    # stream order in one launch
+    # times per load: `staged` (the default) counts rho sorted partitions in
+    # one 2-D launch; `global` and `binned` count the ids in stream order in
+    # one 1-D launch.  The library call is one torch.bincount per row.
     key = torch.where(src2 >= 0, src2, v22)
     require(cap2 % RHO == 0, "degree_histogram: partitions of equal size")
     skey = torch.sort(key.reshape(RHO, cap2 // RHO), dim=1,
                       stable=True).values
-    inputs = {"staged": [skey[p] for p in range(RHO)], "global": [key]}
-    fns = {"ms": lambda p: kernels.degree_histogram(p, num_vertices=v22),
-           "plain_ms": lambda p: kernels.degree_histogram_ref(
-               p, num_vertices=v22),
-           "library_ms": lambda p: torch.bincount(p, minlength=v22 + 1)[:v22]}
+    inputs = {"staged": skey, "global": key}
+
+    def bincount_rows(x):
+        return torch.stack([torch.bincount(r, minlength=v22 + 1)[:v22]
+                            for r in x.reshape(-1, x.shape[-1])])
+    fns = {"ms": lambda x: kernels.degree_histogram(x, num_vertices=v22),
+           "plain_ms": lambda x: kernels.degree_histogram_ref(
+               x, num_vertices=v22),
+           "library_ms": bincount_rows}
     iters = {"ms": 20, "plain_ms": 5, "library_ms": 5}
     hist = {}
-    for method, parts in inputs.items():
-        for p in parts:
-            got, want, library = (f(p) for f in fns.values())
-            require(torch.equal(got, want),
-                    f"degree_histogram (main shape, {method})")
-            require(torch.equal(library.int(), got),
-                    f"degree_histogram vs torch.bincount ({method})")
-        hist[method] = {k: cuda_ms(torch, lambda f=f: [f(p) for p in parts],
-                                   iters[k]) for k, f in fns.items()}
+    for method, x in inputs.items():
+        got, want, library = (f(x) for f in fns.values())
+        require(torch.equal(got, want),
+                f"degree_histogram (main shape, {method})")
+        require(torch.equal(library.int().reshape(got.shape), got),
+                f"degree_histogram vs torch.bincount ({method})")
+        del got, want, library
+        hist[method] = {k: cuda_ms(torch, lambda f=f: f(x), iters[k])
+                        for k, f in fns.items()}
         for k in ("ms", "library_ms"):
             f = fns[k]
             hist[method][k.replace("ms", "device_ms")] = device_ms(
-                torch, lambda f=f: [f(p) for p in parts], 5)
+                torch, lambda f=f: f(x), 5)
+        nrows = 1 if x.dim() == 1 else x.shape[0]
         hist[method].update(
             launches=runs[method]["degree_histogram"],
-            bound_ms=bound_ms(sum(4 * p.numel() + 4 * v22 for p in parts)),
-            shape=f"{len(parts)} x E={parts[0].numel()} int32 "
-                  f"{'sorted' if method == 'staged' else 'stream order'} "
-                  f"-> V={v22}")
-    del skey, inputs
+            bound_ms=bound_ms(4 * x.numel() + 4 * v22 * nrows),
+            shape=f"{tuple(x.shape)} int32 "
+                  f"{'sorted rows' if method == 'staged' else 'stream order'}"
+                  f" -> {tuple(x.shape[:-1]) + (v22,)}")
     staged = hist["staged"]
     rows.append(dict(
         name="degree_histogram", route="cuda",
@@ -749,6 +812,9 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                                  width=GATHER_WIDTH), 3, warmup=1),
             bound_ms=bound_ms(4 * b + 8 * n_off + 4 * read
                               + 4 * b * GATHER_WIDTH + 4 * b),
+            # a yardstick, not a bound: writing the output alone
+            output_fill=timed(torch, lambda b=b: torch.full(
+                (b, GATHER_WIDTH), -1, dtype=torch.int32, device=dev), 20),
             distinct_ids=int(uniq.size), targets_read=read,
             shape=f"B={b} int32 ids ({name}), offsets (V+1={v22 + 1},) "
                   f"int64, targets (E={csr.targets.numel()},) int32, "
@@ -762,13 +828,17 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         **gather["uniform"], edge_sources=gather["edge_sources"]))
     report["kernels"] = rows
     return {"bufs": bufs, "owned": (os_, oe), "edge_bound": bound,
-            "deg": deg}
+            "deg": deg, "hist": inputs, "v": v22, "csr": csr,
+            "gather": consumers["inputs"], "build": (src2, dst2)}
 
 
 def phase_parent(torch, kernels, parent_dir, inputs, report):
-    """This tree's scan, parse and parse + packing against those of the
-    checkout at ``parent_dir``, on the same inputs, timed in turns (parent,
-    this, this, parent); both must agree bitwise."""
+    """This tree's kernels against those of the checkout at ``parent_dir``,
+    on the same inputs, timed in turns (parent, this, this, parent); both
+    must agree bitwise.  The histogram per load: on `staged`'s partitions
+    the parent's four 1-D calls against this tree's one 2-D call, and the
+    stream-order ids; the whole `staged` build on the scale-22 edges; the
+    gather on both of its inputs."""
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent_dir), "src", "repro_torch")
     spec = importlib.util.spec_from_file_location(
@@ -783,7 +853,8 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
     dev = torch.device("cuda", 0)
     bufs, (os_, oe), bound = (inputs["bufs"], inputs["owned"],
                               inputs["edge_bound"])
-    deg = inputs["deg"]
+    deg, v, csr = inputs["deg"], inputs["v"], inputs["csr"]
+    skey, key = inputs["hist"]["staged"], inputs["hist"]["global"]
     accs = {name: parse.make_accumulators(bound, weighted=False, device=dev)
             for name in ("parent", "this")}
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -800,7 +871,32 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
                 a[0], a[1], None, zero, bufs, os_, oe, weighted=False,
                 base=1, edge_bound=bound))(mod, accs[who])
             for who, mod in (("parent", pparse), ("this", parse))},
+        "degree_histogram_staged": {
+            "parent": lambda: [pkernels.degree_histogram(r, num_vertices=v)
+                               for r in skey],
+            "this": lambda: kernels.degree_histogram(skey, num_vertices=v)},
+        "degree_histogram_stream": {
+            who: (lambda mod: lambda: mod.degree_histogram(
+                key, num_vertices=v))(mod)
+            for who, mod in (("parent", pkernels), ("this", kernels))},
     }
+    # the whole staged build, which counts its partitions through the
+    # histogram (four 1-D calls and a stack in the parent, one 2-D call here)
+    from repro_torch.core import build
+    from repro_torch_parent.core import build as pbuild
+    s2, d2 = inputs["build"]
+    fns["csr_staged"] = {
+        "parent": lambda: pbuild.csr_staged(s2, d2, None, v),
+        "this": lambda: build.csr_staged(s2, d2, None, v)}
+    for name, ids in inputs["gather"].items():
+        fns[f"neighbor_gather_{name}"] = {
+            who: (lambda mod, ids: lambda: mod.neighbor_gather(
+                ids, csr.offsets, csr.targets, width=GATHER_WIDTH))(mod, ids)
+            for who, mod in (("parent", pkernels), ("this", kernels))}
+
+    def parts(r):
+        return list(r) if isinstance(r, (list, tuple)) or r.dim() > 1 \
+            else [r]
     out = {}
     for name, pair in fns.items():
         a, b = pair["parent"](), pair["this"]()
@@ -810,8 +906,11 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
                         [t.cpu() if t is not None else None for t in a],
                         False, "parent vs this: parse_bytes")
         else:
-            require(all(torch.equal(x, y) for x, y in zip(a, b)
-                        if x is not None), f"parent vs this: {name}")
+            a, b = parts(a), parts(b)
+            require(len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b) if x is not None),
+                f"parent vs this: {name}")
+        del a, b
         turns = []
         for who in ("parent", "this", "this", "parent"):
             turns.append(dict(who=who, **timed(torch, pair[who])))
@@ -949,8 +1048,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of another commit whose scan, parse "
-                         "and parse + packing to time in turns with these")
+                    help="a checkout of another commit whose kernels to "
+                         "time in turns with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)

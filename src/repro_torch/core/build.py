@@ -92,8 +92,8 @@ def csr_staged(src: torch.Tensor, dst: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """GVEL multi-stage build (Algorithm 2, rank-based).
 
-    Stage 1: rho contiguous partitions, each stably sorted by source, with
-             one degree histogram each.
+    Stage 1: rho contiguous partitions, each stably sorted by source; their
+             rho degree histograms in one launch (the reference's vmap).
     Stage 2: partition degrees -> global offsets (scan) + per-partition
              bases; edge destination = offsets[u] + (edges of u in earlier
              partitions) + local rank.  Destinations are disjoint.
@@ -117,8 +117,7 @@ def csr_staged(src: torch.Tensor, dst: torch.Tensor,
     order = torch.argsort(key, dim=1, stable=True)
     skey = torch.gather(key, 1, order)
     sdst = torch.gather(dstp, 1, order)
-    pdeg = torch.stack([degree_histogram(skey[p], num_vertices=v)
-                        for p in range(rho)])                   # (rho, V)
+    pdeg = degree_histogram(skey, num_vertices=v)               # (rho, V)
     rank = _rank_in_group(skey, v)
 
     # ---- stage 2: global offsets + disjoint merge -------------------------

@@ -23,12 +23,14 @@ def degrees_global(src: torch.Tensor, num_vertices: int) -> torch.Tensor:
 def degrees_partitioned(src: torch.Tensor, num_vertices: int,
                         rho: int = 4) -> torch.Tensor:
     """rho partition-local histograms over contiguous edge chunks:
-    ``(rho, V)``; :func:`combine_degrees` sums them."""
+    ``(rho, V)``, in one launch over the chunks padded with -1 to one
+    length; :func:`combine_degrees` sums them."""
     e = src.shape[0]
     chunk = max(-(-e // rho), 1)
-    return torch.stack([
-        degree_histogram(src[p * chunk:(p + 1) * chunk],
-                         num_vertices=num_vertices) for p in range(rho)])
+    pad = torch.full((rho * chunk - e,), -1, dtype=src.dtype,
+                     device=src.device)
+    parts = torch.cat([src, pad]).reshape(rho, chunk)
+    return degree_histogram(parts, num_vertices=num_vertices)
 
 
 def combine_degrees(pdeg: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,7 @@ _SIGNATURES = {
                                ctypes.c_int),
     "repro_exclusive_scan_scratch_bytes": ([_I64], _I64),
     "repro_exclusive_scan": ([_P, _I64, _P, _P, _P], ctypes.c_int),
-    "repro_degree_histogram": ([_P, _I64, _P, _I64, _P], ctypes.c_int),
+    "repro_degree_histogram": ([_P, _I64, _I64, _P, _I64, _P], ctypes.c_int),
     "repro_neighbor_gather": ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _P,
                                _I64, _P], ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),

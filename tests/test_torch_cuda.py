@@ -359,3 +359,104 @@ def test_point_reads_and_corpus_on_the_card(cuda_device, tmp_path):
             assert batch["tokens"].is_cuda
             assert torch.equal(batch["tokens"].cpu(),
                                b.batch_at(step)["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# the histogram's and the gather's tile hazards (``tests/torch_inputs.py``);
+# every case of 2**20 ids or more runs 20 times in a row
+# ---------------------------------------------------------------------------
+
+def _hist_equal(src, v, times=1):
+    want = kernels.degree_histogram_ref(src, num_vertices=v)
+    for _ in range(times):
+        kernels.reset_launches()
+        got = kernels.degree_histogram(src, num_vertices=v)
+        assert kernels.LAUNCHES["degree_histogram"] == 1
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+def _times(n):
+    return 20 if n >= 1 << 20 else 1
+
+
+@pytest.mark.parametrize("e,v", [(9000, 61), (1 << 20, 5000),
+                                 (1 << 22, 1 << 20)])
+def test_degree_histogram_sorted_runs(cuda_device, e, v):
+    """Runs that cross every thread-chunk, warp and tile boundary."""
+    src = torch.from_numpy(ti.sorted_runs(e, v, e)).to(cuda_device)
+    _hist_equal(src, v, _times(e))
+
+
+@pytest.mark.parametrize("ident", [0, 4999, 5000, -1])
+def test_degree_histogram_one_id_repeated(cuda_device, ident):
+    """One id 2**24 times: valid, the last valid, V itself and -1."""
+    src = torch.full((1 << 24,), ident, dtype=torch.int32,
+                     device=cuda_device)
+    _hist_equal(src, 5000, 20)
+
+
+@pytest.mark.parametrize("e", [*ti.HIST_SIZES, 1 << 26])
+@pytest.mark.parametrize("order", ["sorted", "stream"])
+def test_degree_histogram_sizes(cuda_device, e, order):
+    v = 1 << 22 if e == 1 << 26 else 301
+    ids = ti.stream_ids(e, v, e)
+    if order == "sorted":
+        ids = np.sort(ids)
+    _hist_equal(torch.from_numpy(ids).to(cuda_device), v, _times(e))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("e", [4097, 1 << 20])
+def test_degree_histogram_storage_offset(cuda_device, offset, e):
+    base = torch.from_numpy(ti.sorted_runs(e + offset, 3000, offset))
+    view = base.to(cuda_device)[offset:]
+    assert view.storage_offset() == offset
+    _hist_equal(view, 3000, _times(e))
+
+
+@pytest.mark.parametrize("rho", [1, 3, 4, 8])
+@pytest.mark.parametrize("p", [4099, (1 << 18) + 3])
+def test_degree_histogram_rows(cuda_device, rho, p):
+    """``(rho, P)`` with ``P % 4 != 0``: rows that start at every 4-byte
+    alignment, sorted, ending in the padding key V."""
+    src = torch.from_numpy(ti.padded_partitions(rho, p, 2000, rho + p))
+    _hist_equal(src.to(cuda_device), 2000, _times(rho * p))
+
+
+def test_csr_staged_launches_the_histogram_once(cuda_device):
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(ti.sorted_runs(100003, 7000, 8))
+    src = src[torch.from_numpy(rng.permutation(len(src)))]
+    dst = torch.from_numpy(rng.integers(0, 7000, len(src)).astype(np.int32))
+    want = csr_np(src.numpy(), dst.numpy(), None, 7000)
+    from repro_torch.core import build
+    for rho in (1, 3, 4, 8):
+        kernels.reset_launches()
+        offsets, targets, _ = build.csr_staged(
+            src.to(cuda_device), dst.to(cuda_device), None, 7000, rho=rho)
+        assert kernels.LAUNCHES["degree_histogram"] == 1
+        assert np.array_equal(offsets.cpu().numpy(), want.offsets)
+        assert np.array_equal(targets.cpu().numpy(), want.targets)
+
+
+@pytest.mark.parametrize("width", ti.GATHER_WIDTHS)
+@pytest.mark.parametrize("b", [*ti.GATHER_BATCHES, 1 << 20])
+def test_neighbor_gather_widths_and_groups(cuda_device, width, b):
+    """Widths off and on the int4 path, batches around the group of 32,
+    rows at every ``lo % 4``, a hot vertex of degree far above the width,
+    int64 and int32 offsets."""
+    v = 1 << 16 if b == 1 << 20 else 70
+    off, tgt = ti.gather_csr(v, 40 * width * min(v, 4096), width, width)
+    ids = torch.from_numpy(ti.gather_ids(v, b, b)).to(cuda_device)
+    tgt = torch.from_numpy(tgt).to(cuda_device)
+    for offsets in (off, off.astype(np.int32)):
+        offsets = torch.from_numpy(offsets).to(cuda_device)
+        want = kernels.neighbor_gather_ref(ids, offsets, tgt, width=width)
+        for _ in range(_times(b)):
+            kernels.reset_launches()
+            got = kernels.neighbor_gather(ids, offsets, tgt, width=width)
+            assert kernels.LAUNCHES["neighbor_gather"] == 1
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        del want, got

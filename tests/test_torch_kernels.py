@@ -71,7 +71,7 @@ def test_wrappers_refuse_wrong_input():
     with pytest.raises(ValueError):
         kernels.exclusive_scan(torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError):
-        kernels.degree_histogram(torch.zeros((2, 2), dtype=torch.int32),
+        kernels.degree_histogram(torch.zeros((2, 2, 2), dtype=torch.int32),
                                  num_vertices=3)
     with pytest.raises(ValueError):
         kernels.parse_bytes(torch.zeros(8, dtype=torch.uint8), 0, 8,

@@ -211,3 +211,95 @@ def garbage_accumulators(cap: int, seed: int, weighted: bool):
     dst = rng.integers(-2**31, 2**31, cap).astype(np.int32)
     w = rng.normal(size=cap).astype(np.float32) if weighted else None
     return src, dst, w
+
+
+# ---------------------------------------------------------------------------
+# degree_histogram: ``degree_histogram.cu`` gives each thread 16 consecutive
+# ids of a 4,096-id tile (``HIST_TILE``), a warp 512 (``HIST_WARP``), and
+# aligns the tiles to 16-byte boundaries of the address space
+# ---------------------------------------------------------------------------
+
+HIST_CHUNK, HIST_WARP, HIST_TILE = 16, 512, 4096
+HIST_SIZES = (1, 15, 16, 17, 4095, 4096, 4097)
+
+
+def sorted_runs(e: int, v: int, seed: int) -> np.ndarray:
+    """Sorted int32 ids in ``[0, v)`` whose runs cross every thread-chunk,
+    warp and tile boundary: no run starts on a multiple of 16, and some
+    runs are longer than a warp's 512 ids and a tile's 4,096."""
+    rng = np.random.default_rng(seed)
+    lengths, total = [], 0
+    while total < e:
+        kind = rng.random()
+        if kind < 0.05:
+            n = int(rng.integers(HIST_TILE, 2 * HIST_TILE))
+        elif kind < 0.15:
+            n = int(rng.integers(HIST_WARP, 2 * HIST_WARP))
+        else:
+            n = int(rng.integers(1, 40))
+        if (total + n) % HIST_CHUNK == 0:
+            n += 1                      # the next run starts inside a chunk
+        lengths.append(n)
+        total += n
+    ids = np.sort(rng.choice(v, size=len(lengths), replace=len(lengths) > v))
+    return np.repeat(ids, lengths)[:e].astype(np.int32)
+
+
+def padded_partitions(rho: int, p: int, v: int, seed: int) -> np.ndarray:
+    """``(rho, p)`` int32 rows as the staged build sorts them: each row
+    sorted, holding runs of -1 and of ids >= V among the valid ids, and
+    ending in a run of the padding key V."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for r in range(rho):
+        pad = int(rng.integers(1, max(p // 3, 2)))
+        body = rng.integers(-1, v + 3, p - pad)
+        body[rng.random(p - pad) < 0.1] = -1
+        rows.append(np.concatenate([np.sort(body), np.full(pad, v)]))
+    return np.stack(rows).astype(np.int32)
+
+
+def stream_ids(e: int, v: int, seed: int) -> np.ndarray:
+    """Ids in stream order: padding, in-range ids and ids >= V."""
+    return np.random.default_rng(seed).integers(-1, v + 3, e).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# neighbor_gather: ``neighbor_gather.cu`` gives each warp a group of 32
+# consecutive ids (``GATHER_GROUP``) and stores int4 rows when the width is a
+# multiple of 4
+# ---------------------------------------------------------------------------
+
+GATHER_GROUP = 32
+GATHER_WIDTHS = (5, 33, 128, 1000)
+GATHER_BATCHES = (1, 31, 33)
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def gather_csr(v: int, e: int, width: int, seed: int):
+    """CSR ``(offsets int64, targets int32)`` of about ``e`` edges with
+    degree-0 rows, rows that start at every ``lo % 4`` and one hot vertex
+    (``v // 2``) of degree far above ``width``."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 2 * width, v)
+    deg = deg * e // max(int(deg.sum()), 1) + (np.arange(v) % 4 == 1)
+    deg[rng.random(v) < 0.2] = 0
+    deg[v // 2] = 6 * width + 3                          # the hot vertex
+    off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    assert {int(x) % 4 for x in off[:-1]} == {0, 1, 2, 3}
+    return off, rng.integers(0, v, int(off[-1])).astype(np.int32)
+
+
+def gather_ids(v: int, b: int, seed: int) -> np.ndarray:
+    """``b`` int32 ids: in-range ids (the hot vertex among them), every
+    neighbour of ``[0, v]``, wrapped negatives and the int32 extremes, mixed
+    so a group of 32 holds several kinds."""
+    rng = np.random.default_rng(seed)
+    special = np.concatenate([np.arange(-v - 3, v + 4),
+                              [I32_MIN, I32_MIN + 1, -1, I32_MAX - 1,
+                               I32_MAX, v // 2, v // 2]])
+    ids = rng.integers(0, v, b)
+    k = min(b, len(special))
+    ids[rng.choice(b, k, replace=False)] = rng.choice(special, k,
+                                                      replace=False)
+    return ids.astype(np.int32)
