@@ -37,6 +37,19 @@ Phases (any failure exits non-zero):
    or a dead-end self-loop, and split into two batches bitwise; a
    ``WalkCorpus`` streamed 8 steps and resumed from step 4 bitwise, and
    its cursor saved and read back;
+3c. snapshots, framed text and MTX on the card, each run with the launch
+    counts set to 0 just before it and read just after: ``save`` the
+    scale-22 text as a raw v1 ``.gvel`` (edgelist + CSR, the CSR built on
+    the card by ``convert_to_csr``) and as a ``zlib:1`` v2 ``.gvel``; reopen
+    each and load its embedded CSR twice (the second timed), bitwise against
+    the text-loaded CSR and the oracle; an edgelist-only snapshot through
+    stream + ``staged`` build (histogram and scan must launch); a framed
+    zlib scale-20 text file through the streaming loader (the cut to scale
+    20 is in the setup: compressing 1 GB of text on the host would dominate
+    the phase); a symmetric ``real`` MTX file at scale 18, its CSR against an
+    oracle of the expanded edges; point reads on the ``zlib:1`` snapshot and
+    its ``frame_cache_stats()``; ``neighbor_gather`` at width 128 on 2**20
+    ids over the snapshot-loaded CSR, bitwise against the text CSR's;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -44,7 +57,9 @@ Phases (any failure exits non-zero):
    events around back-to-back wrapper calls (the wrapper's host work
    included), and ``device_ms``, the summed duration of the device
    kernels and memsets of a window of calls in ``torch.profiler``, per
-   call (``library_device_ms`` likewise for the library call).  The
+   call over the calls whose device records were all kept
+   (``library_device_ms`` likewise for the library call; see
+   ``TRACE_LOSSES``).  The
    histogram on both of its inputs, per load: the ``staged`` build's
    sorted partitions in one 2-D call and the stream-order ids of
    ``global`` and ``binned`` in one 1-D call;
@@ -68,6 +83,7 @@ Everything is also written to ``build/repro_torch/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -84,6 +100,7 @@ OUT = os.path.join(ROOT, "build", "repro_torch")
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SCALE, SMALL_SCALE, EDGE_FACTOR = 22, 18, 16
+FRAMED_SCALE, MTX_SCALE = 20, 18   # phase 3c's framed text and MTX file
 RHO = 4                            # csr_staged's partitions (the default)
 LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram")
 GATHER_IDS, GATHER_WIDTH = 1 << 20, 128   # width: the reference's default
@@ -140,14 +157,17 @@ def _column(byte: int, n: int):
     return np.full((n, 1), byte, np.uint8), np.ones((n, 1), bool)
 
 
-def write_edgelist(path: str, src, dst, wint=None, frac_digits: int = 4):
-    """Write ``src+1 dst+1[ weight]`` lines; a weight is the integer
-    ``wint`` printed with ``frac_digits`` decimals (``12.0345``)."""
+def write_edgelist(path: str, src, dst, wint=None, frac_digits: int = 4,
+                   header: bytes = b""):
+    """Write ``header`` and then ``src+1 dst+1[ weight]`` lines; a weight is
+    the integer ``wint`` printed with ``frac_digits`` decimals
+    (``12.0345``)."""
     width = len(str(int(max(src.max(), dst.max())) + 1))
     if wint is not None:
         iwidth = len(str(int(wint.max()) // 10 ** frac_digits))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
+        f.write(header)
         for lo in range(0, len(src), 1 << 22):
             hi = min(lo + (1 << 22), len(src))
             n = hi - lo
@@ -219,23 +239,76 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, calls: int = 20) -> float:
-    """Device time per call: the summed duration of the kernels and
-    memsets that ``calls`` calls of ``fn`` ran on the card, from
-    ``torch.profiler``."""
-    from torch.autograd import DeviceType
+# On the card machine a trace can lose some of its device records (kineto
+# counts them "out of range"), more often late in a long process: a window
+# could keep most of its records, or none.  The runtime
+# calls that launched the work are all kept, and a device record carries
+# its launch's correlation id, so every launch can be checked for its
+# record: device times are taken only over calls whose records are all
+# there, and each trace's losses are counted (``TRACE_LOSSES``).  Idle host
+# time on both sides of the traced work keeps records whose device clock
+# runs a few ms ahead of the host's inside the window.
+TRACE_PAD_S = 0.05
+TRACE_LOSSES = []        # per trace: (launches, launches without a record)
+
+
+@contextlib.contextmanager
+def traced(torch):
+    """``torch.profiler`` over the body, padded on both sides; read the
+    yielded profile with :func:`card_records` after the block."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def card_records(prof):
+    """``(launches, records)``: the runtime calls that put work on the
+    card (kernel launches, memsets, copies) in launch order, and the
+    card's records by correlation id.  Counts the launches left without
+    a record."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith("cu")
+                       and any(k in e.name for k in
+                               ("Launch", "Memset", "Memcpy"))),
+                      key=lambda e: e.time_range.start)
+    records = {e.id: e for e in events if e.device_type == DeviceType.CUDA}
+    TRACE_LOSSES.append((len(launches),
+                         sum(e.id not in records for e in launches)))
+    return launches, records
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time per call: the summed duration of the kernels, memsets
+    and copies that a call of ``fn`` ran on the card, from
+    ``torch.profiler``, averaged over the ``calls`` traced calls whose
+    records were all kept (at least half of them must be).  Every call
+    launches the same work, so the launches split into ``calls`` equal
+    runs in launch order."""
+    fn()
+    with traced(torch) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    require(len(spans) > 0, "device_ms: the profiler saw no device time")
-    return sum(spans) / calls / 1e3
+    launches, records = card_records(prof)
+    per = len(launches) // calls
+    require(per > 0 and per * calls == len(launches),
+            f"device_ms: {len(launches)} launches in {calls} calls alike")
+    whole = []
+    for i in range(calls):
+        run = [records.get(e.id) for e in launches[i * per:(i + 1) * per]]
+        if all(r is not None for r in run):
+            whole.append(sum(r.time_range.end - r.time_range.start
+                             for r in run))
+    require(2 * len(whole) >= calls,
+            f"device_ms: the profiler kept every record of only "
+            f"{len(whole)} of {calls} calls")
+    return sum(whole) / len(whole) / 1e3
 
 
 def timed(torch, fn, iters: int = 50) -> dict:
@@ -571,18 +644,15 @@ def phase_consumers(torch, repro_torch, kernels, path22, s22, oracle,
     steps = NUM_WALKS * (WALK_LENGTH - 1)
 
     # one corpus-sized walk call traced: kernels it launches, busy share
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(torch) as prof:
         t1 = time.perf_counter()
         walks.random_walks(csr.offsets, csr.targets, key, num_walks=4096,
                            length=WALK_LENGTH, num_vertices=v)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
+    _, records = card_records(prof)
     on_card = [(ev.time_range.start, ev.time_range.end)
-               for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+               for ev in records.values()]
     row.update(
         phase_s=time.perf_counter() - t0,
         walk_trace={"num_walks": 4096, "wall_s": traced_s,
@@ -600,6 +670,210 @@ def phase_consumers(torch, repro_torch, kernels, path22, s22, oracle,
     return {"csr": csr, "inputs": inputs, "launches": launches}
 
 
+def counted(torch, kernels, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (result, seconds, launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def need(launches, names, what):
+    require(all(launches[k] > 0 for k in names),
+            f"{what}: {', '.join(names)} launched ({launches})")
+
+
+def same_csr(torch, got, want, what):
+    require(got.offsets.is_cuda and got.targets.is_cuda
+            and got.offsets.dtype == torch.int64
+            and torch.equal(got.offsets, want.offsets)
+            and torch.equal(got.targets, want.targets),
+            f"{what}: bitwise equal to the text-loaded CSR")
+
+
+def phase_snapshots(torch, repro_torch, kernels, path22, oracle, consumers,
+                    report):
+    """``.gvel`` save and load, an edgelist-only snapshot, framed text and
+    MTX on the card (phase 3c).  Returns the launch counts per path."""
+    from repro_torch.core import codecs
+    text_csr = consumers["csr"]
+    off_np, tgt_np, _ = oracle
+    csr_bytes = 8 * off_np.size + 4 * tgt_np.size
+    row, launches = {}, {}
+    snap_dir = os.path.join(DATA, "snapshots")
+    os.makedirs(snap_dir, exist_ok=True)
+    paths = {k: os.path.join(snap_dir, f"rmat22{k}.gvel")
+             for k in ("", ".zlib1", ".edges")}
+
+    # 1. save: the edgelist from the stream, the CSR built on the card
+    g = repro_torch.open_graph(path22)
+    el, row["edgelist_s"], launches["save: edgelist"] = counted(
+        torch, kernels, g.edgelist)
+    need(launches["save: edgelist"], ("parse_accumulate",), "save: edgelist")
+    _, row["save_raw_s"], launches["save: convert_to_csr + write"] = counted(
+        torch, kernels, lambda: g.save(paths[""]))
+    need(launches["save: convert_to_csr + write"],
+         ("degree_histogram", "exclusive_scan"), "save: convert_to_csr")
+    _, row["save_zlib1_s"], _ = counted(
+        torch, kernels, lambda: g.save(paths[".zlib1"], compress="zlib:1"))
+    _, row["save_edges_only_s"], _ = counted(
+        torch, kernels, lambda: g.save(paths[".edges"], csr=False))
+    del el, g
+    row["file_bytes"] = {k: os.path.getsize(p) for k, p in paths.items()}
+
+    # 2. the embedded CSR: twice in the process, the second reported
+    loaded = {}
+    for key, name in (("", "raw"), (".zlib1", "zlib1")):
+        for turn in range(2):
+            csr, sec, lc = counted(
+                torch, kernels,
+                lambda: repro_torch.open_graph(paths[key]).csr())
+            require(sum(lc.values()) == 0,
+                    f"snapshot {name}: the embedded CSR runs no kernel")
+        same_csr(torch, csr, text_csr, f"snapshot {name}")
+        check_csr(csr, oracle, False, f"snapshot {name}")
+        loaded[name] = csr
+        row[f"load_{name}_s"] = sec
+        row[f"load_{name}_GBps"] = csr_bytes / sec / 1e9
+    del loaded["raw"]
+    # the raw load's floor on the host: the CSR sections read from the page
+    # cache into one pinned chunk, with no copy to the card
+    from repro_torch.core import snapshot
+    cells = snapshot.read_snapshot(paths[""], eager=False)._sections
+    buf = memoryview(torch.empty(snapshot.CHUNK_BYTES, dtype=torch.uint8,
+                                 pin_memory=True).numpy())
+    t0 = time.perf_counter()
+    with open(paths[""], "rb") as f:
+        for sid in (snapshot.SEC_CSR_OFFSETS, snapshot.SEC_CSR_INDICES):
+            f.seek(cells[sid].offset)
+            left = cells[sid].nbytes
+            while left:
+                left -= f.readinto(buf[:min(left, len(buf))])
+    row["read_csr_sections_alone_s"] = time.perf_counter() - t0
+    # the zlib:1 load's floor on the host: its CSR sections inflated by one
+    # thread (the reference's decompress_frames) and by the decode pool
+    cells = snapshot.read_snapshot(paths[".zlib1"], eager=False)._sections
+    csr_ids = (snapshot.SEC_CSR_OFFSETS, snapshot.SEC_CSR_INDICES)
+    t0 = time.perf_counter()
+    for sid in csr_ids:
+        c = cells[sid]
+        codecs.decompress_frames(c._payload(), c.raw_nbytes, c.codec)
+    row["inflate_csr_one_thread_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sid in csr_ids:
+        cells[sid].tensor(torch.device("cpu"))
+    row["inflate_csr_pool_s"] = time.perf_counter() - t0
+    row["host_cpus"] = {"cpu_count": os.cpu_count(),
+                        "affinity": len(os.sched_getaffinity(0))}
+    del cells, buf
+
+    # 3. an edgelist-only snapshot: stream + staged build on the card
+    csr, row["load_edges_only_staged_s"], lc = counted(
+        torch, kernels,
+        lambda: repro_torch.open_graph(paths[".edges"]).csr(method="staged"))
+    launches["edgelist-only snapshot"] = lc
+    need(lc, ("degree_histogram", "exclusive_scan"), "edgelist-only snapshot")
+    same_csr(torch, csr, text_csr, "edgelist-only snapshot")
+    del csr
+
+    # 4. framed zlib text at scale 20 through the streaming loader
+    p20, s20, d20, _ = make_graph("rmat20.el", FRAMED_SCALE, False, False,
+                                  SEED + 30)
+    framed = p20 + ".z"
+    t0 = time.perf_counter()
+    if not os.path.exists(framed):
+        codecs.compress_file_framed(p20, framed, codec="zlib", level=1)
+    row["framed_setup_s"] = time.perf_counter() - t0
+    csr, row["load_framed_s"], lc = counted(
+        torch, kernels, lambda: repro_torch.open_graph(framed).csr())
+    launches["framed text"] = lc
+    need(lc, LOAD_KERNELS, "framed text")
+    check_csr(csr, csr_oracle(s20, d20, None, int(max(s20.max(),
+                                                      d20.max())) + 1),
+              False, "framed zlib text")
+    row["framed"] = {"edges": len(s20), "text_bytes": os.path.getsize(p20),
+                     "file_bytes": os.path.getsize(framed),
+                     "edges_per_s": len(s20) / row["load_framed_s"]}
+    del csr, s20, d20
+
+    # 5. a symmetric real MTX file at scale 18, weighted
+    mtx_path = os.path.join(DATA, "rmat18s.mtx")
+    sm, dm, _v = rmat_edges(MTX_SCALE, EDGE_FACTOR, SEED + 40)
+    wint = np.random.default_rng(SEED + 41).integers(0, 10**6, len(sm))
+    wm = wint.astype(np.float32) / np.float32(10**4)
+    vm = 1 << MTX_SCALE
+    if not os.path.exists(mtx_path):
+        write_edgelist(mtx_path, sm, dm, wint, header=(
+            f"%%MatrixMarket matrix coordinate real symmetric\n"
+            f"% RMAT scale {MTX_SCALE}, seed {SEED + 40}\n"
+            f"{vm} {vm} {len(sm)}\n").encode())
+    keep = sm != dm
+    want = csr_oracle(np.concatenate([sm, dm[keep]]),
+                      np.concatenate([dm, sm[keep]]),
+                      np.concatenate([wm, wm[keep]]), vm)
+    csr, row["load_mtx_s"], lc = counted(
+        torch, kernels, lambda: repro_torch.open_graph(mtx_path).csr())
+    launches["mtx (convert_to_csr)"] = lc
+    need(lc, LOAD_KERNELS, "mtx")
+    require(csr.weights is not None and csr.num_vertices == vm,
+            "mtx: weighted, |V| from the size line")
+    check_csr(csr, want, True, "symmetric real mtx")
+    row["mtx"] = {"entries": len(sm), "edges": int(want[1].size),
+                  "self_loops": int((~keep).sum()),
+                  "edges_per_s": want[1].size / row["load_mtx_s"]}
+    del csr, want
+
+    # 6. point reads on the zlib:1 snapshot
+    zs = repro_torch.open_graph(paths[".zlib1"])
+    v = off_np.size - 1
+    deg_np = np.diff(off_np)
+    hot = int(deg_np.argmax())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in (0, 1, hot, int(np.argmin(deg_np)), v // 2, v - 1):
+        lo, hi = int(off_np[u]), int(off_np[u + 1])
+        got = zs.neighbors(u)
+        require(got.is_cuda and np.array_equal(got.cpu().numpy(),
+                                               tgt_np[lo:hi]),
+                f"snapshot point reads: neighbors({u})")
+        require(zs.degree(u) == hi - lo, f"snapshot point reads: degree({u})")
+    for lo, hi in ((max(hot - 2, 0), min(hot + 3, v)), (v - 100, v)):
+        part = zs.csr(rows=(lo, hi))
+        e_lo = int(off_np[lo])
+        require(part.row_start == lo and part.targets.is_cuda
+                and np.array_equal(part.offsets.cpu().numpy(),
+                                   off_np[lo:hi + 1] - e_lo)
+                and np.array_equal(part.targets.cpu().numpy(),
+                                   tgt_np[e_lo:int(off_np[hi])]),
+                f"snapshot point reads: csr(rows=({lo}, {hi}))")
+    row["point_reads_s"] = time.perf_counter() - t0
+    row["frame_cache_stats"] = zs.frame_cache_stats()
+    row["hot_vertex"], row["hot_degree"] = hot, int(deg_np[hot])
+
+    # 7. neighbor_gather over the snapshot-loaded CSR
+    snap_csr = loaded["zlib1"]
+    ids = consumers["inputs"]["uniform"]
+    got, _, lc = counted(torch, kernels, lambda: kernels.neighbor_gather(
+        ids, snap_csr.offsets, snap_csr.targets, width=GATHER_WIDTH))
+    launches["gather on the snapshot CSR"] = lc
+    need(lc, ("neighbor_gather",), "gather on the snapshot CSR")
+    want = kernels.neighbor_gather(ids, text_csr.offsets, text_csr.targets,
+                                   width=GATHER_WIDTH)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "gather on the snapshot CSR equals the text CSR's")
+    del got, want, snap_csr, loaded, zs
+    for p in paths.values():
+        os.remove(p)
+    row["launches"] = launches
+    report["snapshots"] = row
+    say(json.dumps({"snapshots": row}))
+    say("phase 3c: snapshots, framed text and MTX check out on the card")
+    return launches
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -612,7 +886,7 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     rows = []
 
     # parse_bytes: one full batch (8 blocks of 256 KiB + 64) of the file
-    source = codecs.open_block_source(path22)
+    source, _ = codecs.open_block_source(path22)
     plan = blocks.plan_blocks(source.length, beta=256 * 1024, overlap=64)
     mid = plan.num_blocks // 2
     flat = source.stage(plan, np.arange(mid, mid + 8))
@@ -927,7 +1201,7 @@ def phase_breakdown(torch, repro_torch, path22, report):
     from repro_torch.core import blocks, build, codecs, parse
     dev = torch.device("cuda", 0)
     beta, overlap, bb = 256 * 1024, 64, 8
-    source = codecs.open_block_source(path22)
+    source, _ = codecs.open_block_source(path22)
     plan = blocks.plan_blocks(source.length, beta=beta, overlap=overlap)
     arena = blocks.StagingArena(blocks.flat_len(bb, plan), pin=True)
     t0 = time.perf_counter()
@@ -1003,16 +1277,13 @@ def phase_profile(torch, repro_torch, path22, report):
     aten op and the kernel it launches are not counted twice, and a copy
     that overlaps a kernel counts once."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(torch) as prof:
         t0 = time.perf_counter()
         repro_torch.open_graph(path22).csr()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    on_card = list(card_records(prof)[1].values())
     require(len(on_card) > 0, "profile: no device events in the trace")
     spans = [(e.time_range.start, e.time_range.end) for e in on_card]
     busy = union_us(spans) / 1e6
@@ -1102,17 +1373,29 @@ def main() -> int:
 
     consumers = phase_consumers(torch, repro_torch, kernels, p22, s22,
                                 oracle22, report)
+    by_path = phase_snapshots(torch, repro_torch, kernels, p22, oracle22,
+                              consumers, report)
     del oracle22
     inputs = phase_kernels(torch, repro_torch, kernels, p22, v22,
                            {r["method"]: r["launches"] for r in runs[:3]},
                            consumers, report)
-    del consumers
     if args.parent:
         phase_parent(torch, kernels, args.parent, inputs, report)
     del inputs
     torch.cuda.empty_cache()
     phase_breakdown(torch, repro_torch, p22, report)
     phase_profile(torch, repro_torch, p22, report)
+    del consumers
+    for row in report["kernels"]:
+        row["launches_by_path"] = {path: counts.get(row["name"], 0)
+                                   for path, counts in by_path.items()}
+    report["trace_losses"] = {
+        "traces": len(TRACE_LOSSES),
+        "traces_that_lost_records": sum(1 for _, lost in TRACE_LOSSES
+                                        if lost),
+        "launches": sum(n for n, _ in TRACE_LOSSES),
+        "launches_without_a_record": sum(lost for _, lost in TRACE_LOSSES)}
+    say(json.dumps({"trace_losses": report["trace_losses"]}))
     report["seconds"] = time.perf_counter() - t_start
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -193,6 +193,23 @@ def csr_binned(src: torch.Tensor, dst: torch.Tensor,
     return offsets, targets, w
 
 
+def build_csr(src: torch.Tensor, dst: torch.Tensor,
+              weights: Optional[torch.Tensor], num_vertices: int, *,
+              method: str = "staged", rho: int = 4,
+              bin_bits: Optional[int] = None, weighted: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The build named by ``method`` (``global``/``staged``/``binned``)."""
+    if method == "global":
+        return csr_global(src, dst, weights, num_vertices, weighted=weighted)
+    if method == "staged":
+        return csr_staged(src, dst, weights, num_vertices, rho=rho,
+                          weighted=weighted)
+    if method == "binned":
+        return csr_binned(src, dst, weights, num_vertices, bin_bits=bin_bits,
+                          weighted=weighted)
+    raise ValueError(f"unknown method {method!r}")
+
+
 def csr_np(src: np.ndarray, dst: np.ndarray, weights: Optional[np.ndarray],
            num_vertices: int) -> CSR:
     """Host oracle: numpy stable sort."""

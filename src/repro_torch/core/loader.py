@@ -1,12 +1,14 @@
 """Streaming loader on the card: the engine registry and engine calls.
 
-The port of ``repro/core/loader.py``'s streaming path.  One engine,
-``device``, streams a text edgelist (raw or gzip) into packed device
+The port of ``repro/core/loader.py``.  Two engines are registered:
+``snapshot`` serves ``.gvel`` files (:mod:`.snapshot`), and ``device``
+streams a text edgelist (raw, gzip or framed) into packed device
 accumulators and hands them to the rank-based CSR builders:
 
   1. a prefetch thread stages batch i+1's overlap-padded blocks as one
      flat span into a :class:`~repro_torch.core.blocks.StagingArena` ring
-     (pinned on CUDA; gzip decompression runs in that thread too) while
+     (pinned on CUDA; gzip and framed decompression run in that thread
+     too; a framed file's frames are the blocks) while
      the card parses batch i;
   2. the consumer copies the span host-to-device with ``non_blocking=True``
      on a side stream and records an event; the parse stream waits on the
@@ -26,10 +28,11 @@ Entry points resolve ``device=None`` to CUDA and raise without one; pass
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,16 +51,15 @@ DEFAULT_BETA = 256 * 1024
 DEFAULT_BATCH_BLOCKS = 8
 DEFAULT_OVERLAP = 64
 
-SYMMETRIC_NOT_PORTED = ("symmetric=True is not ported yet: ROADMAP Queue 1 "
-                        "item 6 (the front door's remaining products)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LoadOptions:
     """The normalized loading knobs, expanded once into every engine call.
 
     ``engine=None`` means the default (``device``); ``weighted=None``
-    resolves to False for text; ``device=None`` means CUDA.  ``engine_kw``
+    means what the file says (snapshot flags, MTX banner; False for text);
+    ``device=None`` means CUDA.  ``symmetric=True`` appends every edge's
+    reverse (the front door does it once, on the device).  ``engine_kw``
     carries the streaming geometry (``beta``, ``overlap``,
     ``batch_blocks``) verbatim.
     """
@@ -84,8 +86,6 @@ class LoadOptions:
         if self.method not in (None, "global", "staged", "binned"):
             raise ValueError(f"unknown method {self.method!r}; expected "
                              f"'global', 'staged' or 'binned'")
-        if self.symmetric:
-            raise NotImplementedError(SYMMETRIC_NOT_PORTED)
         dup = sorted(set(self.engine_kw) & set(self._OWN_FIELDS))
         if dup:
             raise ValueError(f"option(s) {dup} passed both named and via "
@@ -105,9 +105,15 @@ class LoadOptions:
         return dict(self.engine_kw, weighted=bool(self.weighted),
                     base=self.base, offset=self.offset, device=self.device)
 
+    def prebuilt_kwargs(self) -> Dict[str, Any]:
+        """Keywords for an engine's ``read_csr_prebuilt``."""
+        return dict(self.engine_kw, weighted=bool(self.weighted),
+                    num_vertices=self.num_vertices, offset=self.offset,
+                    device=self.device)
+
 
 # (src, dst, weights-or-None, num_edges device scalar): packed device
-# buffers with -1 padding past num_edges
+# buffers with -1 padding past num_edges (none from a snapshot)
 DeviceEdges = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                     torch.Tensor]
 
@@ -132,6 +138,20 @@ def get_engine(name: str):
 
 def available_engines() -> list:
     return sorted(_REGISTRY)
+
+
+@contextlib.contextmanager
+def engine_for_load(name: str):
+    """``get_engine(name)`` for one load: what the engine memoized during
+    the load (the snapshot engine's open file) is let go when it ends, so
+    a finished load pins no file."""
+    eng = get_engine(name)
+    try:
+        yield eng
+    finally:
+        release = getattr(eng, "clear_memo", None)
+        if release is not None:
+            release()
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +279,12 @@ def _stream_edges(path: str, *, weighted: bool, base: int, offset: int,
     """File -> packed device edge buffers; returns ``((src, dst, w, total),
     capacity)``.  Capacity is GVEL's bytes-derived over-allocation (one
     window of ``edge_cap`` slots per block); lines longer than ``overlap``
-    that cross a block boundary raise ``ValueError``."""
+    that cross a block boundary raise ``ValueError``.  A framed file
+    forces ``beta`` to its frame size."""
     from .codecs import open_block_source
-    source = open_block_source(path, offset)
+    source, forced_beta = open_block_source(path, offset)
+    if forced_beta is not None and forced_beta > overlap:
+        beta = forced_beta          # one frame per block
     plan = plan_blocks(source.length, beta=beta, overlap=overlap)
     cap = plan.num_blocks * plan.edge_cap
     _guard_int32_cap(path, cap)
@@ -315,7 +338,10 @@ class _StreamingEngine:
                         num_vertices)
 
 
-register_engine(_StreamingEngine("device"))
+def _register_builtin_engines() -> None:
+    from .snapshot import SnapshotEngine
+    register_engine(_StreamingEngine("device"))
+    register_engine(SnapshotEngine())
 
 
 # ---------------------------------------------------------------------------
@@ -323,44 +349,60 @@ register_engine(_StreamingEngine("device"))
 # ---------------------------------------------------------------------------
 
 def read_edgelist_via(path: str, opts: LoadOptions) -> EdgeList:
-    """File -> EdgeList through ``opts.engine`` (must be concrete)."""
-    return get_engine(opts.engine).read_edgelist(path, **opts.read_kwargs())
+    """File -> EdgeList through ``opts.engine`` (must be concrete).  The
+    engines return the edges as stored; ``symmetric`` appends the reverse
+    edges here, once."""
+    with engine_for_load(opts.engine) as eng:
+        el = eng.read_edgelist(path, **opts.read_kwargs())
+    if opts.symmetric:
+        from .edgelist import symmetrize
+        el = symmetrize(el)
+    return el
 
 
 def read_csr_via(path: str, opts: LoadOptions, *,
                  method: Optional[str] = None, rho: int = 4,
-                 bin_bits: Optional[int] = None) -> CSR:
-    """File -> CSR on the load's device: stream, sync once for the edge
-    count (and once for the vertex count unless given), shrink to a
-    power-of-two prefix, build.  Offsets come back int64."""
+                 bin_bits: Optional[int] = None,
+                 fallback_edgelist: Optional[Callable[[], EdgeList]] = None,
+                 ) -> CSR:
+    """File -> CSR on the load's device through ``opts.engine``, trying in
+    order: the engine's ``read_csr_prebuilt`` (no parse, no build), its
+    ``stream`` + the build (one sync for the edge count, one for the vertex
+    count unless known, a power-of-two shrink of over-allocated buffers),
+    then an EdgeList (``fallback_edgelist``, or a read) + ``convert_to_csr``.
+    A symmetric load takes the last route.  Offsets come back int64."""
     method = method or opts.method or "staged"
     bin_bits = bin_bits if bin_bits is not None else opts.bin_bits
     weighted = bool(opts.weighted)
-    eng = get_engine(opts.engine)
-    (src, dst, w, total), _cap = eng.stream(path, **opts.stream_kwargs())
-    n = int(total)
-    num_vertices = opts.num_vertices
-    if num_vertices is None:
-        num_vertices = _device_num_vertices(src, dst) if n else 0
-    # padding is all at the tail: a pow-2 prefix keeps every edge and
-    # bounds the sort at 2n
-    cap2 = 1 << max(n - 1, 1).bit_length()
-    if cap2 < src.shape[0]:
-        src, dst = src[:cap2], dst[:cap2]
-        w = w[:cap2] if weighted else None
-    if method == "global":
-        offsets, targets, ww = build.csr_global(
-            src, dst, w, num_vertices, weighted=weighted)
-    elif method == "staged":
-        offsets, targets, ww = build.csr_staged(
-            src, dst, w, num_vertices, rho=rho, weighted=weighted)
-    elif method == "binned":
-        offsets, targets, ww = build.csr_binned(
-            src, dst, w, num_vertices, bin_bits=bin_bits, weighted=weighted)
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    return CSR(offsets.to(torch.int64), targets[:n],
-               ww[:n] if weighted else None, num_vertices)
+    with engine_for_load(opts.engine) as eng:
+        if hasattr(eng, "read_csr_prebuilt") and not opts.symmetric:
+            csr = eng.read_csr_prebuilt(path, **opts.prebuilt_kwargs())
+            if csr is not None:
+                return csr
+        if hasattr(eng, "stream") and not opts.symmetric:
+            num_vertices = opts.num_vertices
+            if num_vertices is None and hasattr(eng, "num_vertices_hint"):
+                num_vertices = eng.num_vertices_hint(path)
+            (src, dst, w, total), _cap = eng.stream(
+                path, **opts.stream_kwargs())
+            n = int(total)
+            if num_vertices is None:
+                num_vertices = _device_num_vertices(src, dst) if n else 0
+            # padding is all at the tail: a pow-2 prefix keeps every edge
+            # and bounds the sort at 2n; an exact-length buffer is left alone
+            cap2 = 1 << max(n - 1, 1).bit_length()
+            if cap2 < src.shape[0]:
+                src, dst = src[:cap2], dst[:cap2]
+                w = w[:cap2] if weighted else None
+            offsets, targets, ww = build.build_csr(
+                src, dst, w, num_vertices, method=method, rho=rho,
+                bin_bits=bin_bits, weighted=weighted)
+            return CSR(offsets.to(torch.int64), targets[:n],
+                       ww[:n] if weighted else None, num_vertices)
+    from .csr import convert_to_csr
+    el = (fallback_edgelist() if fallback_edgelist is not None
+          else read_edgelist_via(path, opts))
+    return convert_to_csr(el, method=method, rho=rho, bin_bits=bin_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -368,26 +410,35 @@ def read_csr_via(path: str, opts: LoadOptions, *,
 # ---------------------------------------------------------------------------
 
 def load_edgelist(path: str, *, engine: str = DEFAULT_EDGELIST_ENGINE,
-                  weighted: bool = False, base: int = 1,
-                  num_vertices: Optional[int] = None, offset: int = 0,
-                  device=None, **engine_kw) -> EdgeList:
+                  weighted: bool = False, symmetric: bool = False,
+                  base: int = 1, num_vertices: Optional[int] = None,
+                  offset: int = 0, device=None, **engine_kw) -> EdgeList:
     """File -> EdgeList on ``device`` (default CUDA); the same as
-    ``open_graph(path, ...).edgelist()``."""
+    ``open_graph(path, ...).edgelist()``.  ``.gvel`` files route to the
+    snapshot engine whatever ``engine`` says."""
     from .source import open_graph
-    return open_graph(path, engine=engine, weighted=weighted, base=base,
+    return open_graph(path, engine=engine, weighted=weighted,
+                      symmetric=symmetric, base=base,
                       num_vertices=num_vertices, offset=offset,
-                      device=device, **engine_kw).edgelist()
+                      device=device,
+                      **engine_kw).edgelist()
 
 
 def load_csr(path: str, *, engine: str = DEFAULT_CSR_ENGINE,
-             weighted: bool = False, base: int = 1,
+             weighted: bool = False, symmetric: bool = False, base: int = 1,
              num_vertices: Optional[int] = None, method: str = "staged",
              rho: int = 4, bin_bits: Optional[int] = None, offset: int = 0,
              device=None, **engine_kw) -> CSR:
     """File -> CSR on ``device`` (default CUDA); the same as
-    ``open_graph(path, ...).csr(method=..., rho=..., bin_bits=...)``."""
+    ``open_graph(path, ...).csr(method=..., rho=..., bin_bits=...)``.  A
+    ``.gvel`` file's embedded CSR is served as stored (``method`` does not
+    apply)."""
     from .source import open_graph
-    return open_graph(path, engine=engine, weighted=weighted, base=base,
+    return open_graph(path, engine=engine, weighted=weighted,
+                      symmetric=symmetric, base=base,
                       num_vertices=num_vertices, offset=offset,
                       device=device, **engine_kw).csr(
                           method=method, rho=rho, bin_bits=bin_bits)
+
+
+_register_builtin_engines()

@@ -4,7 +4,8 @@ The dtype contract is the reference's (``repro/core/types.py``): int32
 vertex ids and targets, float32 weights, ``row_start`` for row-local CSRs.
 Offsets from the port's loaders are int64 (cast once from the int32 scan).
 ``.numpy()`` and ``from_numpy`` carry the JAX package's products, as numpy
-arrays, into the port's types and back.
+arrays, into the port's types and back.  :class:`GraphMeta` is a file
+header's view of a graph (MTX banner and size line).
 """
 from __future__ import annotations
 
@@ -80,3 +81,15 @@ class CSR:
         return cls(_tensor(csr.offsets, device), _tensor(csr.targets, device),
                    _tensor(csr.weights, device), int(csr.num_vertices),
                    int(getattr(csr, "row_start", 0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphMeta:
+    """Header information for a graph file."""
+
+    num_vertices: int
+    num_edges: int                # as declared (before symmetric expansion)
+    weighted: bool
+    symmetric: bool
+    base: int = 1                 # vertex-id base in the file (MTX is 1-based)
+    pattern: bool = False         # MTX 'pattern': no weight column

@@ -29,6 +29,12 @@ pytestmark = pytest.mark.cuda
 LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram")
 
 
+def _oracle(src, dst, w, v):
+    """(offsets, targets, weights) of the port's host oracle."""
+    o = csr_np(src, dst, w, v)
+    return o.offsets, o.targets, o.weights
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -460,3 +466,171 @@ def test_neighbor_gather_widths_and_groups(cuda_device, width, b):
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
         del want, got
+
+
+# ---- .gvel snapshots, framed text, MTX and symmetric=True on the card -------
+
+def _same(a, b):
+    """Bitwise equality of a card tensor and its CPU twin (or None)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def _same_csr(got, want):
+    assert got.num_vertices == want.num_vertices
+    assert got.row_start == want.row_start
+    assert _same(got.offsets, want.offsets) and _same(got.targets, want.targets)
+    assert _same(got.weights, want.weights)
+
+
+@pytest.fixture
+def weighted_text(tmp_path):
+    src, dst, w = ti.graph_edges(21, v=3000, e=40001, weighted=True,
+                                 isolated=5)
+    path = str(tmp_path / "g.el")
+    ti.write_text(path, src, dst, w)
+    return path
+
+
+@pytest.mark.parametrize("compress", [None, "zlib:1"])
+@pytest.mark.parametrize("sections", ["both", "edgelist", "csr"])
+def test_snapshot_products_on_the_card(cuda_device, weighted_text, tmp_path,
+                                       compress, sections):
+    from repro_torch.core import snapshot
+    host = repro_torch.open_graph(weighted_text, device="cpu", weighted=True,
+                                  num_vertices=3000)
+    path = str(tmp_path / "g.gvel")
+    snapshot.save_snapshot(
+        path, edgelist=None if sections == "csr" else host.edgelist(),
+        csr=None if sections == "edgelist" else host.csr(),
+        compress=None if compress is None else compress.split(":")[0],
+        frame_beta=4096)
+    cpu = repro_torch.open_graph(path, device="cpu")
+    card = repro_torch.open_graph(path)
+    kernels.reset_launches()
+    if sections != "edgelist":
+        _same_csr(card.csr(), cpu.csr())
+    else:
+        _same_csr(card.csr(method="staged", rho=3), cpu.csr(method="staged",
+                                                            rho=3))
+        # the edgelist-only snapshot streams its edges and builds on the card
+        assert kernels.LAUNCHES["degree_histogram"] > 0
+        assert kernels.LAUNCHES["exclusive_scan"] > 0
+        (s, d, w, total), cap = card.stream()
+        assert s.is_cuda and s.shape == (cap,) == (40001,)
+        assert int(total) == 40001
+    if sections != "csr":
+        el, want = card.edgelist(), cpu.edgelist()
+        assert _same(el.src, want.src) and _same(el.dst, want.dst)
+        assert _same(el.weights, want.weights)
+    for u in (0, 7, 2999):
+        assert _same(card.neighbors(u), cpu.neighbors(u))
+        ids, w = card.neighbors(u, with_weights=True)
+        assert _same(w, cpu.neighbors(u, with_weights=True)[1])
+        assert card.degree(u) == cpu.degree(u)
+    _same_csr(card.csr(rows=(100, 250)), cpu.csr(rows=(100, 250)))
+    assert card.frame_cache_stats() == cpu.frame_cache_stats()
+
+
+def test_compressed_section_moves_through_the_pinned_ring(
+        cuda_device, weighted_text, tmp_path, monkeypatch):
+    """A zlib CSR section reaches the card chunk by chunk through pinned
+    slots, each frame decoded once, and nothing stays decoded on the
+    host."""
+    from repro_torch.core import codecs, snapshot
+    path = str(tmp_path / "g.gvel")
+    host = repro_torch.open_graph(weighted_text, device="cpu", weighted=True)
+    snapshot.save_snapshot(path, csr=host.csr(), compress="zlib",
+                           frame_beta=4096)
+    arenas, frames = [], []
+
+    class Arena(snapshot.StagingArena):
+        def __init__(self, nbytes, slots=2, pin=False):
+            super().__init__(nbytes, slots, pin)
+            arenas.append((nbytes, pin))
+
+    real = codecs.decode_frame
+
+    def spy(payload, entry, codec, **kw):
+        frames.append((kw["context"], entry.index))
+        return real(payload, entry, codec, **kw)
+    monkeypatch.setattr(snapshot, "StagingArena", Arena)
+    monkeypatch.setattr(snapshot, "CHUNK_BYTES", 8192)
+    monkeypatch.setattr(codecs, "decode_frame", spy)
+    monkeypatch.setattr(snapshot, "FRAME_CACHE_BYTES", 1 << 30)
+    snap = snapshot.read_snapshot(path, eager=False)
+    csr = snap.csr(cuda_device)
+    seen = list(frames)              # the card load's decodes only
+    want = repro_torch.open_graph(path, device="cpu").csr()
+    assert _same(csr.targets, want.targets)
+    assert _same(csr.offsets, want.offsets)
+    assert _same(csr.weights, want.weights)
+    # two 4 KiB frames a chunk, each chunk through a pinned slot
+    assert arenas and all(pin and n == 8192 for n, pin in arenas)
+    assert len(seen) == len(set(seen)) > 3
+    assert snap.decoded_sections() == []
+    assert snap.frame_cache_stats()["frames"] == 0
+
+
+def test_framed_text_loads_on_the_card(cuda_device, weighted_text, tmp_path):
+    from repro_torch.core import codecs
+    framed = str(tmp_path / "g.elz")
+    codecs.compress_file_framed(weighted_text, framed, codec="zlib",
+                                frame_beta=8192)
+    kernels.reset_launches()
+    got = repro_torch.open_graph(framed, weighted=True).csr()
+    assert min(kernels.LAUNCHES[k] for k in LOAD_KERNELS) > 0
+    _same_csr(got, repro_torch.open_graph(weighted_text, device="cpu",
+                                          weighted=True).csr())
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_mtx_and_symmetric_loads_on_the_card(cuda_device, tmp_path,
+                                             symmetric):
+    src, dst, w = ti.graph_edges(22, v=2000, e=30001, weighted=True,
+                                 loops=50)
+    path = str(tmp_path / "g.mtx")
+    with open(path, "w") as f:
+        kind = "symmetric" if symmetric else "general"
+        f.write(f"%%MatrixMarket matrix coordinate real {kind}\n")
+        f.write(f"2000 2000 {len(src)}\n")
+        for a, b, x in zip(src, dst, w):
+            f.write(f"{a + 1} {b + 1} {float(x):.3f}\n")
+    kernels.reset_launches()
+    card = repro_torch.open_graph(path, symmetric=not symmetric)
+    got = card.csr()
+    assert kernels.LAUNCHES["degree_histogram"] > 0
+    assert kernels.LAUNCHES["exclusive_scan"] > 0
+    cpu = repro_torch.open_graph(path, device="cpu", symmetric=not symmetric)
+    _same_csr(got, cpu.csr())
+    el = card.edgelist()
+    assert _same(el.src, cpu.edgelist().src)
+    want = ti.mtx_expand(src, dst, w) if symmetric else \
+        (np.concatenate([src, dst]), np.concatenate([dst, src]),
+         np.concatenate([w, w]))
+    off, tgt, ww = _oracle(*want, 2000)
+    assert np.array_equal(got.targets.cpu().numpy(), tgt)
+    assert got.weights.cpu().numpy().tobytes() == ww.tobytes()
+
+
+@pytest.mark.parametrize("method", ["staged", "global", "binned"])
+def test_convert_to_csr_and_save_on_the_card(cuda_device, weighted_text,
+                                             tmp_path, method):
+    from repro_torch.core import EdgeList, convert_to_csr
+    cpu = repro_torch.open_graph(weighted_text, device="cpu", weighted=True)
+    el = cpu.edgelist()
+    card_el = EdgeList(el.src.to(cuda_device), el.dst.to(cuda_device),
+                       el.weights.to(cuda_device), el.num_edges,
+                       el.num_vertices)
+    kernels.reset_launches()
+    got = convert_to_csr(card_el, method=method)
+    assert kernels.LAUNCHES["degree_histogram"] > 0
+    assert kernels.LAUNCHES["exclusive_scan"] > 0
+    _same_csr(got, convert_to_csr(el, method=method))
+    a, b = str(tmp_path / "card.gvel"), str(tmp_path / "cpu.gvel")
+    out = repro_torch.open_graph(weighted_text, weighted=True).save(
+        a, compress="zlib:1", method=method)
+    cpu.save(b, compress="zlib:1", method=method)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    assert out.options.device.type == "cuda"

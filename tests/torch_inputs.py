@@ -303,3 +303,43 @@ def gather_ids(v: int, b: int, seed: int) -> np.ndarray:
     ids[rng.choice(b, k, replace=False)] = rng.choice(special, k,
                                                       replace=False)
     return ids.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# graph files for the snapshot, framed and MTX paths
+# ---------------------------------------------------------------------------
+
+def graph_edges(seed: int, v: int = 60, e: int = 401, weighted: bool = False,
+                isolated: int = 3, loops: int = 0):
+    """Random multigraph edges (0-based int32); the last ``isolated``
+    vertices have no edges, ``loops`` edges are made self-loops, weights
+    have 3 decimals (they print and parse exactly as float32)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, v - isolated, e).astype(np.int32)
+    dst = rng.integers(0, v - isolated, e).astype(np.int32)
+    if loops:
+        at = rng.choice(e, loops, replace=False)
+        dst[at] = src[at]
+    w = None
+    if weighted:
+        w = np.array([np.float32(f"{x:.3f}")
+                      for x in rng.random(e) * 90 + 0.001], np.float32)
+    return src, dst, w
+
+
+def write_text(path, src, dst, w=None, base: int = 1) -> None:
+    """``u v[ w]`` lines; weights printed with 3 decimals."""
+    with open(path, "w") as f:
+        for i in range(len(src)):
+            line = f"{int(src[i]) + base} {int(dst[i]) + base}"
+            if w is not None:
+                line += f" {float(w[i]):.3f}"
+            f.write(line + "\n")
+
+
+def mtx_expand(src, dst, w):
+    """A symmetric MTX file's edges: the stored entries, then the reverse
+    of each entry that is not a self-loop, in entry order."""
+    keep = src != dst
+    return (np.concatenate([src, dst[keep]]), np.concatenate([dst, src[keep]]),
+            None if w is None else np.concatenate([w, w[keep]]))
