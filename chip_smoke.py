@@ -50,6 +50,24 @@ Phases (any failure exits non-zero):
     oracle of the expanded edges; point reads on the ``zlib:1`` snapshot and
     its ``frame_cache_stats()``; ``neighbor_gather`` at width 128 on 2**20
     ids over the snapshot-loaded CSR, bitwise against the text CSR's;
+3d. (run last, after phase 5, on phase 3c's files) the query-serving
+    cache and the fault plan: a ``SourceCache(capacity=4)`` over the raw
+    and ``zlib:1`` snapshots and the scale-22 text; the text's cold ``csr``
+    query with the launch counts set to 0 just before and read just after
+    (every kernel of the load must launch); 8 threads asking a fresh cache
+    for one cold CSR at once (one open, the same CSR); 20,000 requests on
+    4 threads (60% ``neighbors``, 10% ``degree``, 25% ``rows`` of under
+    V/64 rows, 4% ``info``, 1% ``csr``), timed per request and in all,
+    then every answer held bitwise against the oracle on the card; the
+    same kind of request answered naively (open, full CSR, slice) on a
+    sample of 20; the raw snapshot swapped for another graph's (answers
+    from the new file, one invalidation); two transient block faults on
+    the text load (retried, bitwise); a bit flipped in a ``csr_indices``
+    frame half-way through the ``zlib:1`` section's copy to the card
+    (``CorruptGraphError`` naming the section, ``degree`` and ``info``
+    still served, a swap of the same bytes lifting the quarantine); and a
+    stalled reader under a 1 s watchdog (``StageTimeout`` naming the byte
+    span within 2 s, the next load bitwise);
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -865,12 +883,339 @@ def phase_snapshots(torch, repro_torch, kernels, path22, oracle, consumers,
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
             "gather on the snapshot CSR equals the text CSR's")
     del got, want, snap_csr, loaded, zs
-    for p in paths.values():
-        os.remove(p)
     row["launches"] = launches
     report["snapshots"] = row
     say(json.dumps({"snapshots": row}))
     say("phase 3c: snapshots, framed text and MTX check out on the card")
+    return launches, paths
+
+
+SERVING_REQUESTS, SERVING_THREADS, NAIVE_SAMPLE = 20000, 4, 20
+SERVING_MIX = (("neighbors", 0.60), ("degree", 0.10), ("rows", 0.25),
+               ("info", 0.04), ("csr", 0.01))
+
+
+def serving_requests(paths, v, n, seed):
+    """A deterministic mixed stream, built as the reference's query-service
+    benchmark builds it: (path, op, a, b) with a vertex or a row span of
+    under V/64 rows."""
+    rng = np.random.default_rng(seed)
+    kinds = rng.choice([k for k, _ in SERVING_MIX], size=n,
+                       p=[p for _, p in SERVING_MIX])
+    which = rng.integers(0, len(paths), size=n)
+    verts = rng.integers(0, v, size=n)
+    spans = rng.integers(1, max(2, v // 64), size=n)
+    reqs = []
+    for k, w, u, sp in zip(kinds, which, verts, spans):
+        if k in ("neighbors", "degree"):
+            reqs.append((paths[w], str(k), int(u), 0))
+        elif k == "rows":
+            reqs.append((paths[w], "rows", int(u), min(v, int(u) + int(sp))))
+        else:
+            reqs.append((paths[w], str(k), 0, 0))
+    return reqs
+
+
+def serve(cache, req):
+    path, op, a, b = req
+    if op in ("neighbors", "degree"):
+        return cache.query(path, op, vertex=a)
+    if op == "rows":
+        return cache.query(path, "rows", rows=(a, b))
+    return cache.query(path, op)
+
+
+def naive_answer(repro_torch, req):
+    """The answer without the serving layer: open, load the full CSR,
+    slice."""
+    path, op, a, b = req
+    csr = repro_torch.open_graph(path).csr()
+    if op == "neighbors":
+        return csr.targets[csr.offsets[a]:csr.offsets[a + 1]]
+    if op == "degree":
+        return int(csr.offsets[a + 1] - csr.offsets[a])
+    if op == "rows":
+        from repro_torch.core import slice_csr
+        return slice_csr(csr, a, b)
+    return csr
+
+
+class OnCard:
+    """A numpy CSR oracle, and the same arrays on the card (where answers
+    are compared)."""
+
+    def __init__(self, torch, oracle):
+        self.off, self.tgt = oracle[0], oracle[1]
+        self.off_dev = torch.from_numpy(self.off).cuda()
+        self.tgt_dev = torch.from_numpy(self.tgt).cuda()
+        self.checked = set()            # full CSRs already compared
+
+
+def check_answer(torch, ans, req, ref, text_path, what):
+    """One answer bitwise against the oracle."""
+    path, op, a, b = req
+    off = ref.off
+    if op == "neighbors":
+        require(ans.is_cuda and torch.equal(
+            ans, ref.tgt_dev[int(off[a]):int(off[a + 1])]),
+            f"{what}: neighbors({a}) of {path}")
+    elif op == "degree":
+        require(ans == int(off[a + 1] - off[a]),
+                f"{what}: degree({a}) of {path}")
+    elif op == "rows":
+        e_lo, e_hi = int(off[a]), int(off[b])
+        require(ans.row_start == a and ans.targets.is_cuda
+                and torch.equal(ans.offsets, ref.off_dev[a:b + 1] - e_lo)
+                and torch.equal(ans.targets, ref.tgt_dev[e_lo:e_hi]),
+                f"{what}: rows [{a}, {b}) of {path}")
+    elif op == "info":
+        require(ans.format == "text" if path == text_path else (
+            ans.num_vertices == off.size - 1
+            and ans.num_edges == ref.tgt.size), f"{what}: info of {path}")
+    elif id(ans) not in ref.checked:
+        require(ans.offsets.is_cuda and torch.equal(ans.offsets, ref.off_dev)
+                and torch.equal(ans.targets, ref.tgt_dev),
+                f"{what}: csr of {path}")
+        ref.checked.add(id(ans))
+
+
+def percentiles(xs):
+    a = np.sort(np.asarray(xs)) * 1e3
+    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "mean_ms": float(a.mean()), "max_ms": float(a.max())}
+
+
+def phase_serving(torch, repro_torch, kernels, path22, oracle, snap_paths,
+                  swap_graph, report):
+    """The query-serving cache and the fault plan on the card (phase 3d).
+    Returns the launch counts of the cold ``csr`` query."""
+    import threading
+    from repro_torch.core import faults, snapshot
+    from repro_torch.core.cache import SourceCache
+    from repro_torch.core.faults import (CorruptGraphError, FaultPlan,
+                                         FaultSpec, StageTimeout,
+                                         fault_plan)
+    t_phase = time.perf_counter()
+    off_np = oracle[0]
+    ref = OnCard(torch, oracle)
+    v = off_np.size - 1
+    raw, z1 = snap_paths[""], snap_paths[".zlib1"]
+    files = [raw, z1, path22]
+    row, launches = {"files": {"raw": os.path.getsize(raw),
+                               "zlib1": os.path.getsize(z1),
+                               "text": os.path.getsize(path22)}}, {}
+
+    # 1. the cold csr query of the text file, its launches counted
+    cache = SourceCache(capacity=4)
+    first, row["cold_csr_text_s"], lc = counted(
+        torch, kernels, lambda: cache.query(path22, "csr"))
+    launches["serving: cold csr query (text)"] = lc
+    need(lc, LOAD_KERNELS, "serving: cold csr query")
+    check_csr(first, oracle, False, "serving: cold csr query")
+    # eight threads ask one fresh cache for one cold CSR at once
+    cold = SourceCache(capacity=4)
+    gate = threading.Barrier(8)
+    got = [None] * 8
+
+    def ask(i):
+        gate.wait(60)
+        got[i] = cold.query(path22, "csr")
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    row["cold_csr_8_threads_s"] = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads)
+            and all(g is got[0] for g in got),
+            "serving: 8 threads share one cold CSR")
+    require(cold.stats()["misses"] == 1, f"serving: 8 threads, misses == 1 "
+            f"({cold.stats()['misses']})")
+    same_csr(torch, got[0], first, "serving: 8 threads' cold CSR")
+    del cold, got, threads
+
+    # 2. the mixed stream on 4 threads, timed; answers checked after it
+    reqs = serving_requests(files, v, SERVING_REQUESTS, SEED + 50)
+    answers = [None] * len(reqs)
+    lat = [0.0] * len(reqs)
+    failures = []
+
+    def worker(k):
+        try:
+            for i in range(k, len(reqs), SERVING_THREADS):
+                t1 = time.perf_counter()
+                answers[i] = serve(cache, reqs[i])
+                lat[i] = time.perf_counter() - t1
+        except Exception as exc:        # reported by the main thread
+            failures.append(repr(exc))
+    before = cache.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(SERVING_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(not failures and not any(t.is_alive() for t in threads),
+            f"serving: the stream ran ({failures[:3]})")
+    st = cache.stats()
+    kind = {raw: "raw", z1: "zlib1", path22: "text"}
+    by_op, by_op_file = {}, {}
+    for req, x in zip(reqs, lat):
+        by_op.setdefault(req[1], []).append(x)
+        by_op_file.setdefault(f"{req[1]} {kind[req[0]]}", []).append(x)
+    row["stream"] = {
+        "requests": len(reqs), "threads": SERVING_THREADS,
+        "mix": dict(SERVING_MIX), "wall_s": wall,
+        "requests_per_s": len(reqs) / wall,
+        "by_op": {k: percentiles(x) for k, x in sorted(by_op.items())},
+        "by_op_file": {k: percentiles(x)
+                       for k, x in sorted(by_op_file.items())},
+        "hits": st["hits"] - before["hits"],
+        "misses": st["misses"] - before["misses"],
+        "frame_cache": st["frame_cache"]}
+    t0 = time.perf_counter()
+    for i, (req, ans) in enumerate(zip(reqs, answers)):
+        check_answer(torch, ans, req, ref, path22, f"serving request {i}")
+    row["stream"]["check_s"] = time.perf_counter() - t0
+    require(row["stream"]["misses"] == 2,
+            f"serving: the stream opened the two snapshots once each "
+            f"({row['stream']['misses']})")
+    del answers
+
+    # point and row requests answered without the serving layer, on a
+    # sample
+    sliced = [i for i, r in enumerate(reqs)
+              if r[1] in ("neighbors", "degree", "rows")]
+    pick = np.random.default_rng(SEED + 51).choice(
+        sliced, NAIVE_SAMPLE, replace=False)
+    naive = []
+    for i in pick:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ans = naive_answer(repro_torch, reqs[i])
+        torch.cuda.synchronize()
+        naive.append(time.perf_counter() - t1)
+        check_answer(torch, ans, reqs[i], ref, path22,
+                     f"naive request {i}")
+        del ans
+    row["naive"] = {"sample": NAIVE_SAMPLE,
+                    "ops": [reqs[i][1] + " " + kind[reqs[i][0]]
+                            for i in pick],
+                    **percentiles(naive),
+                    "served_mean_ms_same_requests": float(
+                        np.mean([lat[i] for i in pick]) * 1e3)}
+    del lat
+    say(json.dumps({"serving_stream": {
+        k: x for k, x in row["stream"].items() if k != "by_op_file"},
+        "naive": row["naive"]}))
+
+    # 3. swap: another graph's snapshot replaces the raw one
+    new_path, new_oracle = swap_graph
+    inv = cache.stats()["invalidations"]
+    t0 = time.perf_counter()
+    os.replace(new_path, raw)
+    nv = new_oracle[0].size - 1
+    new_ref = OnCard(torch, new_oracle)
+    for u in (0, 1, nv // 2, nv - 1):
+        check_answer(torch, cache.query(raw, "neighbors", vertex=u),
+                     (raw, "neighbors", u, 0), new_ref, None,
+                     "serving: after the swap")
+    require(cache.query(raw, "info").num_vertices == nv,
+            "serving: info after the swap")
+    row["swap_s"] = time.perf_counter() - t0
+    require(cache.stats()["invalidations"] - inv == 1,
+            "serving: the swap invalidated one entry")
+
+    # 4. faults
+    # a. two transient block faults on the text load, retried bitwise
+    faults.reset_counters()
+    plan = FaultPlan([FaultSpec("block", "oserror", index=3, times=2)])
+    t0 = time.perf_counter()
+    csr = repro_torch.open_graph(path22, faults=plan).csr()
+    torch.cuda.synchronize()
+    row["faults"] = {"block_oserror_load_s": time.perf_counter() - t0}
+    check_csr(csr, oracle, False, "faults: block:oserror@3*2")
+    require(faults.counters()["io_retries"] == 2
+            and plan.injected() == {"block:oserror": 2},
+            f"faults: two retries ({faults.counters()}, {plan.injected()})")
+    del csr
+    # b. a bit flipped in a csr_indices frame half-way through the zlib:1
+    # section's chunked copy to the card: quarantined, siblings serve,
+    # and a swap of the same bytes lifts it
+    cache.invalidate(z1)                  # drop the memoized CSR
+    n_frames = snapshot.section_frame_counts(z1)["csr_indices"]
+    plan = FaultPlan([FaultSpec(
+        "frame", "bitflip", index=n_frames // 2,
+        path=f"{z1} section {snapshot.SEC_CSR_INDICES}")], seed=SEED)
+    t0 = time.perf_counter()
+    err = None
+    with fault_plan(plan):
+        try:
+            cache.query(z1, "csr")
+        except CorruptGraphError as exc:
+            err = exc
+    row["faults"]["frame_bitflip_s"] = time.perf_counter() - t0
+    require(err is not None and err.section == "csr_indices"
+            and err.path == z1 and plan.injected() == {"frame:bitflip": 1},
+            f"faults: frame:bitflip gives CorruptGraphError(csr_indices) "
+            f"({err!r}, {plan.injected()})")
+    torch.cuda.synchronize()
+    u = int(np.argmax(np.diff(off_np)))
+    require(cache.query(z1, "degree", vertex=u)
+            == int(off_np[u + 1] - off_np[u])
+            and cache.query(z1, "info").num_vertices == v,
+            "faults: degree and info serve under the quarantine")
+    err = None
+    try:
+        cache.query(z1, "neighbors", vertex=u)
+    except CorruptGraphError as exc:
+        err = exc
+    require(err is not None and "quarantined" in str(err),
+            "faults: neighbors is quarantined")
+    t0 = time.perf_counter()
+    shutil.copyfile(z1, z1 + ".swap")
+    os.replace(z1 + ".swap", z1)
+    csr = cache.query(z1, "csr")
+    row["faults"]["swap_back_s"] = time.perf_counter() - t0
+    check_csr(csr, oracle, False, "faults: served after the swap back")
+    fs = cache.stats()["faults"]
+    require(fs["recovered"] >= 1 and not fs["quarantined"],
+            f"faults: the swap lifted the quarantine ({fs})")
+    row["faults"]["cache"] = fs
+    del csr
+    # c. a stalled reader under a lowered watchdog
+    budget, saved = 1.0, faults.WATCHDOG_S
+    faults.WATCHDOG_S = budget
+    plan = FaultPlan([FaultSpec("block", "stall", index=0, delay_s=5.0)])
+    err = None
+    t0 = time.perf_counter()
+    try:
+        repro_torch.open_graph(path22, faults=plan).csr()
+    except StageTimeout as exc:
+        err = exc
+    finally:
+        faults.WATCHDOG_S = saved
+    dt = time.perf_counter() - t0
+    row["faults"]["stall"] = {"budget_s": budget, "raised_after_s": dt,
+                              "message": str(err)}
+    require(err is not None and "byte span [0, " in str(err)
+            and dt < budget + 1.0,
+            f"faults: StageTimeout within budget + 1 s ({dt:.2f}s, {err!r})")
+    csr = repro_torch.open_graph(path22).csr()
+    check_csr(csr, oracle, False, "faults: the next unfaulted load")
+    del csr, first, cache, ref, new_ref
+    row["phase_s"] = time.perf_counter() - t_phase
+    report["serving"] = row
+    say(json.dumps({"serving": {k: x for k, x in row.items()
+                                if k not in ("stream", "naive")}}))
+    say("phase 3d: the serving cache and the fault plan check out on the "
+        "card")
     return launches
 
 
@@ -1368,14 +1713,13 @@ def main() -> int:
     runs.append(drive(torch, repro_torch, kernels, p18z, "staged", False,
                       oracle18z, len(s18z), "rmat18 gzip staged"))
     report["runs"] = runs
-    del oracle18w, oracle18z
+    del oracle18w, oracle18z, s18w, d18w, w18w
     say("phase 3: every main-path CSR equals the numpy oracle bitwise")
 
     consumers = phase_consumers(torch, repro_torch, kernels, p22, s22,
                                 oracle22, report)
-    by_path = phase_snapshots(torch, repro_torch, kernels, p22, oracle22,
-                              consumers, report)
-    del oracle22
+    by_path, snap_paths = phase_snapshots(torch, repro_torch, kernels, p22,
+                                          oracle22, consumers, report)
     inputs = phase_kernels(torch, repro_torch, kernels, p22, v22,
                            {r["method"]: r["launches"] for r in runs[:3]},
                            consumers, report)
@@ -1386,6 +1730,20 @@ def main() -> int:
     phase_breakdown(torch, repro_torch, p22, report)
     phase_profile(torch, repro_torch, p22, report)
     del consumers
+    # phase 3d runs on 3c's files after the traced phases: placed before
+    # them, it left phase 4's first trace with no device record at all on
+    # an H100 (PERF.md, section 6).  It swaps another graph's raw snapshot
+    # in: the gzip scale-18 one.
+    swap_path = os.path.join(DATA, "snapshots", "rmat18.gvel")
+    repro_torch.open_graph(p18z).save(swap_path)
+    by_path.update(phase_serving(
+        torch, repro_torch, kernels, p22, oracle22, snap_paths,
+        (swap_path, csr_oracle(s18z, d18z, None,
+                               int(max(s18z.max(), d18z.max())) + 1)),
+        report))
+    for p in snap_paths.values():
+        os.remove(p)
+    del oracle22
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

@@ -6,31 +6,61 @@ Public API:
                                             .info() / .edgelist() / .csr()
                                             / .csr(rows=) / .neighbors() /
                                             .degree() / .stream() / .save()
+    SourceCache, query, default_cache    -- the hot-graph cache and the
+                                            serving entry (query(path,
+                                            "neighbors", vertex=v))
     slice_csr                            -- rows [lo, hi) as a row-local CSR
-    load_edgelist, load_csr              -- thin wrappers over a GraphSource
-    convert_to_csr                       -- in-memory EdgeList -> CSR
-    save_snapshot, read_snapshot         -- the .gvel container
-    read_mtx, write_mtx                  -- MatrixMarket files
-    LoadOptions, SourceInfo              -- option / metadata types
-    EdgeList, CSR                        -- core types (tensors; .numpy(),
+    load_edgelist, load_csr, read_csr    -- thin wrappers over a GraphSource
+    convert_to_csr, symmetrize           -- in-memory EdgeList transforms
+    save_snapshot, read_snapshot,
+    Snapshot                             -- the .gvel container
+    read_mtx, read_mtx_csr, write_mtx,
+    mtx_to_snapshot                      -- MatrixMarket files
+    register_codec, get_codec, available_codecs,
+    write_framed, compress_file_framed   -- codecs and framed containers
+    make_graph_file, rmat_edges, ...     -- synthetic graphs (numpy)
+    FaultPlan, FaultSpec, fault_plan, ...-- fault injection and recovery
+    LoadOptions, SourceInfo, LoaderEngine-- option / metadata / engine types
+    EdgeList, CSR, GraphMeta             -- core types (tensors; .numpy(),
                                             from_numpy)
     env                                  -- device resolution, fingerprint
 """
-from .types import CSR, EdgeList
-from .loader import (LoadOptions, available_engines, get_engine, load_csr,
-                     load_edgelist, register_engine)
+from .types import CSR, EdgeList, GraphMeta
+from .loader import (LoaderEngine, LoadOptions, available_engines,
+                     get_engine, load_csr, load_edgelist, register_engine)
 from .source import GraphSource, SourceInfo, open_graph, slice_csr
-from .csr import convert_to_csr
-from .mtx import read_mtx, write_mtx
-from .snapshot import SnapshotError, read_snapshot, save_snapshot
-from . import (blocks, build, codecs, csr, degrees, edgelist, env, faults,
-               indexing, loader, mtx, parse, snapshot, source)
+from .cache import SourceCache, default_cache, query
+from .edgelist import symmetrize
+from .csr import convert_to_csr, csr_to_dense, read_csr
+from .mtx import mtx_to_snapshot, read_mtx, read_mtx_csr, write_mtx
+from .snapshot import Snapshot, SnapshotError, read_snapshot, save_snapshot
+from .codecs import (available_codecs, compress_file_framed, get_codec,
+                     register_codec, write_framed)
+from .generate import (grid_edges, make_graph_file, rmat_edges,
+                       uniform_edges, write_edgelist)
+from .faults import (CorruptGraphError, FaultPlan, FaultSpec, ShardLoadError,
+                     StageTimeout, fault_plan, plan_from_env, set_fault_plan)
+from . import (blocks, build, cache, codecs, csr, degrees, edgelist, env,
+               faults, generate, indexing, loader, mtx, parse, snapshot,
+               source)
 
 __all__ = [
-    "CSR", "EdgeList", "LoadOptions", "GraphSource", "SourceInfo",
-    "open_graph", "slice_csr", "load_csr", "load_edgelist", "register_engine",
-    "get_engine", "available_engines", "convert_to_csr", "read_mtx",
-    "write_mtx", "SnapshotError", "read_snapshot", "save_snapshot",
-    "blocks", "build", "codecs", "csr", "degrees", "edgelist", "env",
-    "faults", "indexing", "loader", "mtx", "parse", "snapshot", "source",
+    "CSR", "EdgeList", "GraphMeta",
+    "open_graph", "GraphSource", "SourceInfo", "LoadOptions", "slice_csr",
+    "SourceCache", "query", "default_cache",
+    "load_edgelist", "load_csr", "register_engine", "get_engine",
+    "available_engines", "LoaderEngine",
+    "save_snapshot", "read_snapshot", "Snapshot", "SnapshotError",
+    "register_codec", "get_codec", "available_codecs",
+    "compress_file_framed", "write_framed",
+    "symmetrize",
+    "convert_to_csr", "read_csr", "csr_to_dense",
+    "read_mtx", "read_mtx_csr", "write_mtx", "mtx_to_snapshot",
+    "make_graph_file", "rmat_edges", "uniform_edges", "grid_edges",
+    "write_edgelist",
+    "FaultPlan", "FaultSpec", "StageTimeout", "ShardLoadError",
+    "CorruptGraphError", "set_fault_plan", "fault_plan", "plan_from_env",
+    "blocks", "build", "cache", "codecs", "csr", "degrees", "edgelist",
+    "env", "faults", "generate", "indexing", "loader", "mtx", "parse",
+    "snapshot", "source",
 ]

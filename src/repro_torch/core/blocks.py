@@ -24,11 +24,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import faults
+
 NEWLINE = 10
 
 
 def mmap_bytes(path: str, offset: int = 0) -> np.ndarray:
-    """Memory-map a file as uint8, optionally skipping a header prefix."""
+    """Memory-map a file as uint8, optionally skipping a header prefix (the
+    ``mmap`` fault site)."""
+    if faults._ACTIVE is not None:
+        faults.inject("mmap", 0, where=path)
     size = os.path.getsize(path)
     if size <= offset:
         return np.zeros(0, np.uint8)

@@ -21,10 +21,10 @@ random-access mmap source, gzip and framed files a sequential source whose
 chunks are decompressed in the loader's prefetch thread; framed files force
 the plan's block size to ``frame_beta``, so one frame is decompressed per
 block staged.  Every decompression checks frame checksums and declared
-lengths and raises ``ValueError`` on a mismatch.
-
-The reference's fault-injection hooks and its per-shard sources are not
-ported (ROADMAP Queue 1).
+lengths and raises ``ValueError`` on a mismatch.  Frame decodes are the
+``frame`` fault site, and every block source is wrapped for the ``block``
+site (:mod:`.faults`).  The reference's per-shard sources are not ported
+(ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from typing import Dict, Iterator, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 
+from . import faults as _faults
 from .blocks import MemoryBlockSource, SequentialBlockSource, mmap_bytes
 
 # codec id 0 is reserved for "stored" (no compression) in on-disk headers
@@ -247,6 +248,9 @@ def iter_decompressed_frames(payload, codec: Codec, *,
             idx += 1
             continue
         comp = bytes(view[pos:pos + comp_len])
+        if _faults._ACTIVE is not None:
+            for f in _faults.inject("frame", idx, where=context):
+                comp = _faults.corrupt_bytes(comp, f, salt=idx)
         try:
             raw = codec.decompress(comp, raw_len)
         except ValueError as exc:
@@ -335,6 +339,9 @@ def decode_frame(payload, entry: FrameEntry, codec: Codec, *,
     or CRC32 mismatch."""
     view = memoryview(payload)
     comp = bytes(view[entry.payload_off:entry.payload_off + entry.comp_len])
+    if _faults._ACTIVE is not None:
+        for f in _faults.inject("frame", entry.index, where=context):
+            comp = _faults.corrupt_bytes(comp, f, salt=entry.index)
     try:
         raw = codec.decompress(comp, entry.raw_len)
     except ValueError as exc:
@@ -589,21 +596,23 @@ def open_block_source(path: str, offset: int = 0):
     force the plan's block size to ``frame_beta``."""
     kind = compression_of(path)
     if kind is None:
-        return MemoryBlockSource(mmap_bytes(path, offset)), None
+        source = MemoryBlockSource(mmap_bytes(path, offset))
+        return _faults.wrap_block_source(source, path), None
     if kind == "gzip":
         length = gzip_length_hint(path)
-        return SequentialBlockSource(
+        source = SequentialBlockSource(
             _gzip_chunks(path), length - offset, skip=offset,
             describe=f"{path} (gzip)",
             mismatch_hint=" (multi-member or >4 GiB gzip? the trailer "
                           "length is unreliable there -- recompress with "
-                          "repro_torch.core.codecs.compress_file_framed)"), \
-            None
+                          "repro_torch.core.codecs.compress_file_framed)")
+        return _faults.wrap_block_source(source, f"{path} (gzip)"), None
     info = read_framed_header(path)
+    where = f"{path} (framed {info.codec.name})"
     source = SequentialBlockSource(
         _framed_chunks(info), info.orig_len - offset, skip=offset,
-        describe=f"{path} (framed {info.codec.name})")
-    return source, info.frame_beta
+        describe=where)
+    return _faults.wrap_block_source(source, where), info.frame_beta
 
 
 def stream_geometry(path: str, offset: int = 0) -> Tuple[int, Optional[int]]:

@@ -5,12 +5,14 @@ the paper's Figures 3-4 (``global`` / ``staged`` with rho partitions /
 ``binned``) over an EdgeList that is already in memory, as MTX files,
 ``symmetric=True`` loads and ``save`` produce it.  On a CUDA edge list the
 build counts degrees with the ``degree_histogram`` kernel and scans them
-with ``exclusive_scan``.
+with ``exclusive_scan``.  :func:`read_csr` and :func:`csr_to_dense` are the
+reference's small wrappers.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import build
@@ -32,3 +34,28 @@ def convert_to_csr(el: EdgeList, *, method: str = "staged", rho: int = 4,
         weighted=weighted)
     return CSR(offsets.to(torch.int64), targets,
                ww if weighted else None, v)
+
+
+def read_csr(path: str, *, weighted: bool = False, symmetric: bool = False,
+             base: int = 1, num_vertices: Optional[int] = None,
+             method: str = "staged", rho: int = 4,
+             bin_bits: Optional[int] = None, engine: str = "device",
+             device=None, **reader_kwargs) -> CSR:
+    """File -> CSR on ``device`` (default CUDA) through the front door; the
+    reference's back-compat wrapper, with its ``engine="jax"`` read as the
+    streaming ``device`` engine."""
+    from .loader import load_csr
+    return load_csr(path, engine="device" if engine == "jax" else engine,
+                    weighted=weighted, symmetric=symmetric, base=base,
+                    num_vertices=num_vertices, method=method, rho=rho,
+                    bin_bits=bin_bits, device=device, **reader_kwargs)
+
+
+def csr_to_dense(csr: CSR) -> np.ndarray:
+    """A small graph's ``(num_rows, num_vertices)`` int64 edge-count matrix
+    on the host (a debugging helper)."""
+    out = np.zeros((csr.num_rows, csr.num_vertices), np.int64)
+    c = csr.numpy()
+    for u in range(c.num_rows):
+        np.add.at(out[u], c.targets[c.offsets[u]:c.offsets[u + 1]], 1)
+    return out

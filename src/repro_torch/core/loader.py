@@ -32,7 +32,8 @@ import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import (Any, Callable, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -61,7 +62,9 @@ class LoadOptions:
     ``device=None`` means CUDA.  ``symmetric=True`` appends every edge's
     reverse (the front door does it once, on the device).  ``engine_kw``
     carries the streaming geometry (``beta``, ``overlap``,
-    ``batch_blocks``) verbatim.
+    ``batch_blocks``) verbatim.  ``faults`` pins a
+    :class:`~.faults.FaultPlan` on the handle: every product runs under it
+    (never expanded into engine keywords).
     """
 
     engine: Optional[str] = None
@@ -73,10 +76,12 @@ class LoadOptions:
     method: Optional[str] = None
     bin_bits: Optional[int] = None
     device: Any = None
+    faults: Any = None
     engine_kw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     _OWN_FIELDS = ("engine", "weighted", "symmetric", "base",
-                   "num_vertices", "offset", "method", "bin_bits", "device")
+                   "num_vertices", "offset", "method", "bin_bits", "device",
+                   "faults")
 
     def __post_init__(self):
         if self.base not in (0, 1):
@@ -116,6 +121,20 @@ class LoadOptions:
 # buffers with -1 padding past num_edges (none from a snapshot)
 DeviceEdges = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                     torch.Tensor]
+
+
+@runtime_checkable
+class LoaderEngine(Protocol):
+    """A parse backend for :func:`register_engine`.  ``read_edgelist`` is
+    mandatory; an engine that leaves edges on the device also implements
+    ``stream`` (``read_csr_via`` probes for it, and for
+    ``read_csr_prebuilt`` and ``num_vertices_hint``, with ``hasattr``)."""
+
+    name: str
+
+    def read_edgelist(self, path: str, *, weighted: bool, base: int,
+                      num_vertices: Optional[int], offset: int,
+                      **kw) -> EdgeList: ...
 
 
 _REGISTRY: Dict[str, Any] = {}
@@ -256,6 +275,7 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
             try:
                 flat = fut.result(timeout=faults.WATCHDOG_S)
             except _FutTimeout:
+                faults._count("stage_timeouts")
                 ids = batch_ids(i)
                 lo_b = int(ids[0]) * plan.beta
                 hi_b = min((int(ids[-1]) + 1) * plan.beta, plan.file_len)
@@ -290,7 +310,8 @@ def _stream_edges(path: str, *, weighted: bool, base: int, offset: int,
     _guard_int32_cap(path, cap)
     edges = _parse_span(source, plan, 0, plan.num_blocks, weighted=weighted,
                         base=base, batch_blocks=batch_blocks, cap=cap,
-                        device=device, describe=path)
+                        device=device,
+                        describe=getattr(source, "_describe", path))
     source.finish()
     return edges, cap
 

@@ -26,17 +26,28 @@ never decodes a weights section, and ``csr(rows=)`` / ``neighbors`` /
 Damage inside a compressed section surfaces at first access of a product
 that needs it, as :class:`~.snapshot.SnapshotError`.
 
+Every product of a handle runs under the handle's fault plan
+(``open_graph(..., faults=plan)``, :mod:`.faults`).  A handle may be shared
+by threads (the serving cache does so): a cold product is built once, under
+the handle's lock, and published only when its device work is complete, so
+a thread on another CUDA stream never reads a product still being built.
+
 ``python -m repro_torch.core.source <path> [--device cpu]`` prints
-``info()`` as JSON.  ``csr_sharded`` raises ``NotImplementedError`` until
-ROADMAP Queue 1 item 8 ports the sharded load.
+``info()`` as JSON.  ``csr_sharded`` and ``open_graph(tune=True)`` raise
+``NotImplementedError`` until ROADMAP Queue 1 items 4 and 3 port the
+sharded load and the autotuner.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 from .env import resolve_device
+from .faults import fault_plan
 from .loader import (DEFAULT_CSR_ENGINE, DEFAULT_EDGELIST_ENGINE, LoadOptions,
                      available_engines, engine_for_load, get_engine,
                      read_csr_via, read_edgelist_via)
@@ -46,7 +57,8 @@ FORMAT_GVEL = "gvel"
 FORMAT_MTX = "mtx"
 FORMAT_TEXT = "text"
 
-_SHARDED_ITEM = "ROADMAP Queue 1 item 8 (the sharded load)"
+_SHARDED_ITEM = "ROADMAP Queue 1 item 4 (the sharded load)"
+_TUNE_ITEM = "ROADMAP Queue 1 item 3 (the autotuner)"
 
 
 def _normalize_rows(rows) -> Tuple[int, int]:
@@ -166,6 +178,8 @@ class GraphSource:
         self._gvel_peek = None                # (version, flags, V, E, entries)
         self._framed_hdr = None               # codecs.FramedInfo
         self._snap = None                     # pinned lazy Snapshot (gvel)
+        # cold builds run once per handle, whichever thread asks first
+        self._build_lock = threading.RLock()
         if validate:
             self._validate()
 
@@ -295,13 +309,25 @@ class GraphSource:
     def edgelist(self) -> EdgeList:
         """The graph as an :class:`EdgeList` on the source's device."""
         if self._el is None:
-            opts = self._opts_for("edgelist")
-            if self.format == FORMAT_MTX:
-                self._el = self._mtx_edgelist(opts)
-            else:
-                self._el = read_edgelist_via(self.path, opts)
-            self._el_engine = opts.engine
+            with self._build_lock, fault_plan(self.options.faults):
+                if self._el is None:
+                    opts = self._opts_for("edgelist")
+                    if self.format == FORMAT_MTX:
+                        el = self._mtx_edgelist(opts)
+                    else:
+                        el = read_edgelist_via(self.path, opts)
+                    self._el_engine = opts.engine
+                    self._el = self._complete(el)
         return self._el
+
+    def _complete(self, product):
+        """``product`` once the device work that made it has finished: it
+        was queued on this thread's current stream, and a memoized product
+        is read by other threads on their own streams."""
+        dev = self.options.device
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        return product
 
     def _build_method(self, method: Optional[str]) -> str:
         return method or self.options.method or "staged"
@@ -324,19 +350,26 @@ class GraphSource:
             return self._csr_rows(rows, method=method, rho=rho,
                                   bin_bits=bin_bits)
         key = (method, rho, bin_bits)
-        if key not in self._csrs:
-            if self.format == FORMAT_MTX:
-                from .csr import convert_to_csr
-                csr = convert_to_csr(self.edgelist(), method=method, rho=rho,
-                                     bin_bits=bin_bits)
-            else:
-                opts = self._opts_for("csr")
-                csr = read_csr_via(
-                    self.path, opts, method=method, rho=rho,
-                    bin_bits=bin_bits,
-                    fallback_edgelist=lambda: self._edgelist_for(opts))
-            self._csrs[key] = csr
-        return self._csrs[key]
+        csr = self._csrs.get(key)
+        if csr is None:
+            with self._build_lock, fault_plan(self.options.faults):
+                csr = self._csrs.get(key)
+                if csr is None:
+                    csr = self._complete(self._build_csr(method, rho,
+                                                         bin_bits))
+                    self._csrs[key] = csr
+        return csr
+
+    def _build_csr(self, method: str, rho: int,
+                   bin_bits: Optional[int]) -> CSR:
+        if self.format == FORMAT_MTX:
+            from .csr import convert_to_csr
+            return convert_to_csr(self.edgelist(), method=method, rho=rho,
+                                  bin_bits=bin_bits)
+        opts = self._opts_for("csr")
+        return read_csr_via(
+            self.path, opts, method=method, rho=rho, bin_bits=bin_bits,
+            fallback_edgelist=lambda: self._edgelist_for(opts))
 
     def _selective_snap(self):
         """The pinned lazy snapshot when selective reads can serve this
@@ -349,7 +382,10 @@ class GraphSource:
         snap = self._snap
         if snap is None:
             from .snapshot import read_snapshot
-            snap = self._snap = read_snapshot(self.path, eager=False)
+            with self._build_lock:
+                if self._snap is None:
+                    self._snap = read_snapshot(self.path, eager=False)
+                snap = self._snap
         if not snap.has_csr:
             return None
         nv = self.options.num_vertices
@@ -367,10 +403,11 @@ class GraphSource:
     def _csr_rows(self, rows, *, method: str, rho: int,
                   bin_bits: Optional[int] = None) -> CSR:
         lo, hi = _normalize_rows(rows)
-        snap = self._selective_snap()
-        if snap is not None:
-            return snap.csr_rows(lo, hi, weighted=self._weighted(),
-                                 device=self.options.device)
+        with fault_plan(self.options.faults):
+            snap = self._selective_snap()
+            if snap is not None:
+                return snap.csr_rows(lo, hi, weighted=self._weighted(),
+                                     device=self.options.device)
         return slice_csr(self.csr(method=method, rho=rho, bin_bits=bin_bits),
                          lo, hi)
 
@@ -392,10 +429,11 @@ class GraphSource:
         if with_weights and not self._weighted():
             raise ValueError(
                 f"{self.path}: with_weights=True but source is unweighted")
-        snap = self._selective_snap()
-        if snap is not None:
-            return snap.neighbors(u, weighted=bool(with_weights),
-                                  device=self.options.device)
+        with fault_plan(self.options.faults):
+            snap = self._selective_snap()
+            if snap is not None:
+                return snap.neighbors(u, weighted=bool(with_weights),
+                                      device=self.options.device)
         full, lo, hi = self._row(u)
         ids = full.targets[lo:hi]
         if not with_weights:
@@ -406,9 +444,10 @@ class GraphSource:
         """Vertex ``u``'s out-degree (a Python int, as in the reference);
         two offset elements on a CSR-embedded snapshot."""
         u = int(u)
-        snap = self._selective_snap()
-        if snap is not None:
-            return snap.degree(u)
+        with fault_plan(self.options.faults):
+            snap = self._selective_snap()
+            if snap is not None:
+                return snap.degree(u)
         _full, lo, hi = self._row(u)
         return hi - lo
 
@@ -421,9 +460,10 @@ class GraphSource:
         engines coincide."""
         if self._el is not None and self._el_engine == opts.engine:
             return self._el
-        el = read_edgelist_via(self.path, opts)
+        el = self._complete(read_edgelist_via(self.path, opts))
         if self._el is None:
-            self._el, self._el_engine = el, opts.engine
+            self._el_engine = opts.engine
+            self._el = el
         return el
 
     def _mtx_edgelist(self, opts: LoadOptions) -> EdgeList:
@@ -456,7 +496,7 @@ class GraphSource:
                 f"{self.path}: stream() does not apply MTX banner "
                 f"attributes; use .edgelist() or .csr()")
         opts = self._opts_for("csr")
-        with engine_for_load(opts.engine) as eng:
+        with engine_for_load(opts.engine) as eng, fault_plan(opts.faults):
             if not hasattr(eng, "stream"):
                 raise ValueError(f"engine {opts.engine!r} has no stream "
                                  f"path; engines: {available_engines()}")
@@ -472,6 +512,14 @@ class GraphSource:
         (``"zlib"``, ``"zstd:9"``); ``csr=False`` stores only the edgelist.
         Memoized products are reused; a text source is parsed once (its
         CSR is built from the edgelist just read)."""
+        with fault_plan(self.options.faults):
+            return self._save(out_path, compress=compress,
+                              compress_level=compress_level, csr=csr,
+                              method=method, rho=rho)
+
+    def _save(self, out_path: str, *, compress: Optional[str],
+              compress_level: Optional[int], csr: bool,
+              method: Optional[str], rho: int) -> "GraphSource":
         from .snapshot import SnapshotError, save_snapshot
         method = self._build_method(method)
         if compress is not None:
@@ -491,11 +539,12 @@ class GraphSource:
             csr_obj = None
             if csr:
                 key = (method, rho, self.options.bin_bits)
-                if self.format == FORMAT_TEXT and key not in self._csrs:
-                    from .csr import convert_to_csr
-                    self._csrs[key] = convert_to_csr(
-                        el, method=method, rho=rho,
-                        bin_bits=self.options.bin_bits)
+                with self._build_lock:
+                    if self.format == FORMAT_TEXT and key not in self._csrs:
+                        from .csr import convert_to_csr
+                        self._csrs[key] = self._complete(convert_to_csr(
+                            el, method=method, rho=rho,
+                            bin_bits=self.options.bin_bits))
                 csr_obj = self.csr(method=method, rho=rho)
         save_snapshot(out_path, edgelist=el, csr=csr_obj, compress=compress,
                       compress_level=compress_level)
@@ -508,7 +557,8 @@ def open_graph(path: str, *, engine: Optional[str] = None,
                offset: int = 0, validate: bool = True,
                symmetric: bool = False, num_vertices: Optional[int] = None,
                method: Optional[str] = None, bin_bits: Optional[int] = None,
-               device=None, **engine_kw) -> GraphSource:
+               device=None, tune: bool = False, faults=None,
+               **engine_kw) -> GraphSource:
     """Open a graph file as a lazy :class:`GraphSource` on ``device``
     (default CUDA; raises without one unless ``device="cpu"``).
 
@@ -519,12 +569,18 @@ def open_graph(path: str, *, engine: Optional[str] = None,
     convention (snapshots are 0-based and ignore it).  ``symmetric=True``
     appends every edge's reverse.  ``validate=True`` runs cheap structural
     checks at open, never touching section payloads.  ``engine_kw`` carries
-    the streaming geometry (``beta``, ``overlap``, ``batch_blocks``)."""
+    the streaming geometry (``beta``, ``overlap``, ``batch_blocks``).
+    ``faults`` pins a :class:`~.faults.FaultPlan` on the handle: every
+    product runs under it.  ``tune=True`` raises ``NotImplementedError``
+    until the autotuner is ported."""
+    if tune:
+        raise NotImplementedError(
+            f"open_graph(tune=True) is not ported yet: {_TUNE_ITEM}")
     opts = LoadOptions(engine=engine, weighted=weighted, symmetric=symmetric,
                        base=1 if base is None else base,
                        num_vertices=num_vertices, offset=offset,
                        method=method, bin_bits=bin_bits, device=device,
-                       engine_kw=dict(engine_kw))
+                       faults=faults, engine_kw=dict(engine_kw))
     return GraphSource(path, opts, validate=validate)
 
 

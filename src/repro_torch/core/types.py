@@ -70,6 +70,21 @@ class CSR:
     def num_rows(self) -> int:
         return int(self.offsets.shape[0]) - 1
 
+    def degree(self, u) -> Any:
+        """Row ``u``'s out-degree as a 0-d tensor on the CSR's device (on a
+        row-local CSR ``u`` is the local row, ``vertex - row_start``)."""
+        return self.offsets[u + 1] - self.offsets[u]
+
+    def neighbors(self, u):
+        """Row ``u``'s targets, a view of ``targets`` (local row, as
+        :meth:`degree`)."""
+        lo, hi = int(self.offsets[u]), int(self.offsets[u + 1])
+        return self.targets[lo:hi]
+
+    def degrees(self) -> Any:
+        """Every row's out-degree, on the CSR's device, with no host sync."""
+        return self.offsets[1:] - self.offsets[:-1]
+
     def numpy(self) -> "CSR":
         return CSR(_np(self.offsets), _np(self.targets), _np(self.weights),
                    int(self.num_vertices), int(self.row_start))

@@ -1,0 +1,232 @@
+"""Seeded chaos matrix for the port: drive the fault-injection harness
+(:mod:`repro_torch.core.faults`) through the recovery paths and fail loudly
+when a self-healing contract regresses.
+
+The port's twin of ``scripts/chaos_matrix.py``.  Scenarios, each seeded,
+each printing one OK line:
+
+  transient-retry   streaming and cached loads under injected transient
+                    OSErrors and latency retry to a bitwise-equal result
+  stuck-reader      a stalled block source raises StageTimeout naming its
+                    byte span within the (lowered) watchdog budget
+  quarantine-swap   a CRC-corrupt CSR frame on disk quarantines
+                    (path, section) with a structured CorruptGraphError
+                    while sibling sections and other graphs serve, and a
+                    swap on disk recovers
+
+The reference's other two scenarios wait for their modules:
+``sigterm-resume`` needs ``ft.Coordinator`` (ROADMAP Queue 1 item 5) and
+``shard-reexec`` the sharded load (Queue 1 item 4).
+
+    python -m repro_torch.scripts.chaos_matrix                 # on CUDA
+    python -m repro_torch.scripts.chaos_matrix --device cpu
+    python -m repro_torch.scripts.chaos_matrix --scenario stuck-reader
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import struct
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+from repro_torch.core import (convert_to_csr, faults, load_edgelist,
+                              make_graph_file, open_graph, save_snapshot)
+from repro_torch.core import snapshot as snapmod
+from repro_torch.core.cache import SourceCache
+from repro_torch.core.faults import (CorruptGraphError, FaultPlan, FaultSpec,
+                                     StageTimeout, fault_plan)
+
+SCENARIOS_RUN = ("transient-retry", "stuck-reader", "quarantine-swap")
+
+
+def _graph(tmp, name, seed, *, scale=8, kind="rmat"):
+    el = os.path.join(tmp, name + ".el")
+    v, _e = make_graph_file(el, kind, scale=scale, edge_factor=4, seed=seed)
+    return el, v
+
+
+def _zlib_snapshot(tmp, name, seed, device):
+    """A small-frame zlib ``.gvel``: one corrupt frame is a section-local
+    event, so the quarantine's scope shows."""
+    el, v = _graph(tmp, name, seed, scale=7)
+    elist = load_edgelist(el, num_vertices=v, base=1, device=device)
+    gv = os.path.join(tmp, name + ".gvel")
+    save_snapshot(gv, edgelist=elist, csr=convert_to_csr(elist),
+                  compress="zlib", frame_beta=128)
+    return gv, v
+
+
+def corrupt_section(path, section_name):
+    """Flip one byte inside the named section's compressed payload, past
+    the first frame header (a CRC or decode failure at the next read)."""
+    with open(path, "rb") as f:
+        hdr = f.read(snapmod.HEADER_LEN)
+    _, version, _, _, _, nsec, _ = struct.unpack(snapmod.HEADER_FMT, hdr)
+    if version != snapmod.VERSION_COMPRESSED:
+        raise ValueError(f"{path}: not a compressed (v2) snapshot")
+    want = {v: k for k, v in snapmod.SECTION_NAMES.items()}[section_name]
+    with open(path, "rb") as f:
+        f.seek(snapmod.HEADER_LEN)
+        table = f.read(nsec * snapmod.SECTION_LEN_V2)
+    for i in range(nsec):
+        sid, _, off, nbytes, _, _, _ = struct.unpack_from(
+            snapmod.SECTION_FMT_V2, table, i * snapmod.SECTION_LEN_V2)
+        if sid == want:
+            pos = off + 12 + min(13, max(0, nbytes - 13))
+            with open(path, "r+b") as f:
+                f.seek(pos)
+                b = f.read(1)
+                f.seek(pos)
+                f.write(bytes([b[0] ^ 0x40]))
+            return
+    raise ValueError(f"{section_name} not found in {path}")
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def _bitwise(a, b, what):
+    _require(np.array_equal(a.offsets.cpu().numpy(), b.offsets.cpu().numpy()),
+             f"{what}: offsets differ")
+    _require(np.array_equal(a.targets.cpu().numpy(), b.targets.cpu().numpy()),
+             f"{what}: targets differ")
+
+
+def scenario_transient_retry(tmp, seed, device):
+    """Transient faults at the block, mmap and open sites; the loads recover
+    bitwise equal to the fault-free runs."""
+    faults.reset_counters()
+    el, v = _graph(tmp, "tr", seed)
+    clean = open_graph(el, num_vertices=v, device=device).csr()
+    plan = FaultPlan([FaultSpec("block", "oserror", index=0, times=2),
+                      FaultSpec("block", "latency", index=1, delay_s=0.005),
+                      FaultSpec("mmap", "latency", times=1, delay_s=0.005)],
+                     seed=seed)
+    faulty = open_graph(el, num_vertices=v, device=device,
+                        faults=plan).csr()
+    _bitwise(clean, faulty, "transient-retry streaming")
+    _require(plan.injected().get("block:oserror") == 2,
+             f"block faults injected: {plan.injected()}")
+    c = faults.counters()
+    _require(c["io_retries"] >= 2, f"io retries: {c}")
+
+    # a cold open through the cache that fails transiently still serves
+    gv, _ = _zlib_snapshot(tmp, "tr_snap", seed, device)
+    cache = SourceCache(capacity=2)
+    with fault_plan(FaultPlan([FaultSpec("open", "oserror", times=2)],
+                              seed=seed)):
+        got = cache.query(gv, "csr", device=device)
+    st = cache.stats()["faults"]
+    _require(st["open_retries"] == 2, f"open retries: {st}")
+    _require(got.num_vertices > 0, "cached csr served")
+    print(f"chaos[transient-retry]: {c['io_retries']} IO retries + "
+          f"{st['open_retries']} open retries, results bitwise equal OK")
+
+
+def scenario_stuck_reader(tmp, seed, device):
+    """A stalled block source trips the watchdog within its budget, as a
+    StageTimeout naming the byte span."""
+    faults.reset_counters()
+    el, v = _graph(tmp, "stuck", seed)
+    budget, saved = 0.4, faults.WATCHDOG_S
+    faults.WATCHDOG_S = budget
+    plan = FaultPlan([FaultSpec("block", "stall", index=0, delay_s=3.0)],
+                     seed=seed)
+    t0 = time.perf_counter()
+    try:
+        open_graph(el, num_vertices=v, device=device, faults=plan).csr()
+        raise AssertionError("stuck reader did not raise StageTimeout")
+    except StageTimeout as exc:
+        dt = time.perf_counter() - t0
+        _require("byte span [" in str(exc), str(exc))
+        _require(dt < budget + 1.0, f"watchdog fired late: {dt:.2f}s")
+    finally:
+        faults.WATCHDOG_S = saved
+    _require(faults.counters()["stage_timeouts"] == 1,
+             f"stage timeouts: {faults.counters()}")
+    print(f"chaos[stuck-reader]: StageTimeout in {dt:.2f}s "
+          f"(budget {budget}s) OK")
+
+
+def scenario_quarantine_swap(tmp, seed, device):
+    """A corrupt CSR frame -> a structured quarantine; siblings serve; a
+    swap on disk recovers."""
+    live, v = _zlib_snapshot(tmp, "live", seed, device)
+    other, _ = _zlib_snapshot(tmp, "other", seed + 1, device)
+    backup = live + ".bak"
+    shutil.copyfile(live, backup)
+    cache = SourceCache(capacity=4)
+    deg = cache.query(live, "degree", vertex=1, device=device)
+    cache.invalidate()
+
+    corrupt_section(live, "csr_indices")
+    try:
+        cache.query(live, "csr", device=device)
+        raise AssertionError("corrupt section served")
+    except CorruptGraphError as exc:
+        _require(exc.section == "csr_indices", exc.section)
+    try:
+        cache.query(live, "neighbors", vertex=1, device=device)
+        raise AssertionError("quarantined section served")
+    except CorruptGraphError as exc:
+        _require("quarantined" in str(exc), str(exc))
+    # header-only and offsets-only ops, and the other graph, keep serving
+    _require(cache.query(live, "info", device=device).num_vertices == v,
+             "info serves")
+    _require(cache.query(live, "degree", vertex=1, device=device) == deg,
+             "degree serves")
+    _require(cache.query(other, "csr", device=device).num_vertices > 0,
+             "the other graph serves")
+    st = cache.stats()["faults"]
+    _require(st["quarantines"] == 1 and bool(st["quarantined"]), str(st))
+
+    os.replace(backup, live)                 # swap the good bytes back
+    os.utime(live)
+    got = cache.query(live, "csr", device=device)
+    _require(got.num_vertices == v, "swapped file serves")
+    st = cache.stats()["faults"]
+    _require(st["recovered"] >= 1 and not st["quarantined"], str(st))
+    print(f"chaos[quarantine-swap]: csr_indices quarantined "
+          f"({st['corrupt_errors']} structured errors), siblings served, "
+          f"swap recovered OK")
+
+
+SCENARIOS = {
+    "transient-retry": scenario_transient_retry,
+    "stuck-reader": scenario_stuck_reader,
+    "quarantine-swap": scenario_quarantine_swap,
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.scripts.chaos_matrix",
+        description=__doc__.split("\n")[0])
+    ap.add_argument("--scenario", choices=SCENARIOS_RUN, action="append",
+                    help="run only these (default: all)")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--device", default=None,
+                    help="where the loads run (default CUDA; 'cpu' runs "
+                    "the plain PyTorch versions)")
+    args = ap.parse_args(argv)
+    names = args.scenario or list(SCENARIOS_RUN)
+    tmp = tempfile.mkdtemp(prefix="gvel_chaos_")
+    try:
+        for name in names:
+            SCENARIOS[name](tmp, args.seed, args.device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chaos matrix: {len(names)} scenario(s) green "
+          f"(seed={args.seed})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

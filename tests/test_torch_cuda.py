@@ -634,3 +634,96 @@ def test_convert_to_csr_and_save_on_the_card(cuda_device, weighted_text,
     cpu.save(b, compress="zlib:1", method=method)
     assert open(a, "rb").read() == open(b, "rb").read()
     assert out.options.device.type == "cuda"
+
+
+# ---- the serving cache and the fault plan on the card -------------------------
+
+
+def test_two_streams_share_a_cached_csr(cuda_device, tmp_path):
+    """A CSR built cold by one thread on its own stream is complete when
+    another thread, on another stream, reads it from the cache."""
+    import threading
+    import torch_serving as ts
+    from repro_torch.core.cache import SourceCache
+    path, v, oracle = ts.text_file(tmp_path, "big", v=1 << 16, e=1 << 21)
+    cache = SourceCache(capacity=2)
+    built, results = threading.Event(), {}
+
+    def build_first():
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            results["a"] = cache.query(path, "csr", num_vertices=v)
+        built.set()
+
+    def reader():
+        built.wait(120)
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            csr = cache.query(path, "csr", num_vertices=v)
+            # read on this stream at once, with no wait on the first thread
+            results["b"] = (csr.offsets.clone(), csr.targets.clone(),
+                            csr.degrees().sum())
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=build_first),
+               threading.Thread(target=reader)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    assert not any(t.is_alive() for t in threads)
+    off, tgt, total = results["b"]
+    assert results["a"].targets.is_cuda and off.is_cuda
+    assert ts.same(off, oracle.offsets) and ts.same(tgt, oracle.targets)
+    assert int(total) == 1 << 21
+    assert cache.stats()["misses"] == 1 and cache.stats()["hits"] == 1
+
+
+def test_cache_resolves_the_device_before_the_slot(cuda_device, tmp_path):
+    import torch_serving as ts
+    from repro_torch.core.cache import SourceCache
+    gv, v, oracle = ts.snapshot_file(tmp_path, "g", compress=None)
+    cache = SourceCache(capacity=8)
+    torch.cuda.set_device(cuda_device)
+    handles = [cache.get(gv, device=d) for d in
+               (None, "cuda", "cuda:0", torch.device("cuda", 0))]
+    assert all(h is handles[0] for h in handles)
+    assert len(cache) == 1 and cache.stats()["misses"] == 1
+    assert handles[0].options.device == torch.device("cuda", 0)
+    assert cache.get(gv, device="cpu") is not handles[0]
+    got = cache.query(gv, "neighbors", vertex=5, device="cuda:0")
+    assert got.is_cuda and ts.same(got, oracle.targets[oracle.offsets[5]:
+                                                       oracle.offsets[6]])
+
+
+def test_frame_fault_during_the_pinned_ring_copy(cuda_device, weighted_text,
+                                                 tmp_path, monkeypatch):
+    """A frame fault inside the decode pool, mid-way through a section's
+    chunked copy to the card, surfaces as the section's CorruptGraphError;
+    the side stream is drained, and the next requests are served."""
+    import os
+    import shutil
+    from repro_torch.core import faults, snapshot
+    from repro_torch.core.cache import SourceCache
+    host = repro_torch.open_graph(weighted_text, device="cpu", weighted=True,
+                                  num_vertices=3000)
+    path = str(tmp_path / "g.gvel")
+    snapshot.save_snapshot(path, edgelist=host.edgelist(), csr=host.csr(),
+                           compress="zlib", frame_beta=4096)
+    monkeypatch.setattr(snapshot, "CHUNK_BYTES", 8192)
+    where = f"{path} section {snapshot.SEC_CSR_INDICES}"
+    plan = faults.FaultPlan([faults.FaultSpec("frame", "bitflip", index=9,
+                                              path=where)], seed=1)
+    cache = SourceCache(capacity=2)
+    with faults.fault_plan(plan):
+        with pytest.raises(faults.CorruptGraphError) as ei:
+            cache.query(path, "csr")
+    assert ei.value.section == "csr_indices" and ei.value.op == "csr"
+    assert plan.injected() == {"frame:bitflip": 1}
+    torch.cuda.synchronize()
+    assert cache.query(path, "degree", vertex=7) == host.degree(7)
+    assert cache.query(path, "info").num_vertices == 3000
+    with pytest.raises(faults.CorruptGraphError, match="quarantined"):
+        cache.query(path, "neighbors", vertex=7)
+    shutil.copyfile(path, path + ".new")           # swap the same bytes in
+    os.replace(path + ".new", path)
+    _same_csr(cache.query(path, "csr"), host.csr())
+    assert cache.stats()["faults"]["recovered"] == 1
