@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --parent DIR   # also time DIR's kernels in turns
+    python3 chip_smoke.py --cards 4  # only the sharded load, NCCL, 4 cards
 
 Needs one CUDA device of compute capability >= 9.0 and the CUDA toolkit
 (the kernels are built from ``src/repro_torch/csrc`` at first use).  It
@@ -68,6 +69,26 @@ Phases (any failure exits non-zero):
     still served, a swap of the same bytes lifting the quarantine); and a
     stalled reader under a 1 s watchdog (``StageTimeout`` naming the byte
     span within 2 s, the next load bitwise);
+3e. (run after 3d) the sharded load and the tuner, each run with the
+    launch counts set to 0 just before it and read just after: a world of
+    one rank over NCCL (a ``file://`` rendezvous) in this process loads the
+    scale-22 text through ``open_graph(p).csr_sharded(mesh)`` twice (the
+    second timed; ``parse_accumulate``, ``degree_histogram`` and
+    ``exclusive_scan`` must launch in each) and 3c's framed scale-20 text
+    once, each bitwise against the oracle in the reference's row layout;
+    a world of two ranks over gloo, both on ``cuda:0`` and spawned as
+    subprocesses of this script (``--shard-rank``; the kernels are built
+    by then), loads the scale-22 text twice in each rank, the parent
+    holding each rank's rows bitwise against the oracle's, and each rank
+    then runs ``shard-reexec`` (block 0 fails three times; shard 0
+    re-executes once) bitwise against its clean rows.  That world tests
+    the exchange at d > 1 on the card; it is not a deployment (NCCL takes
+    one card per rank, and the machine has one).  Then the tuner: with a
+    fresh profile under ``build/repro_torch``, ``open_graph(p22,
+    tune=True).csr()`` sweeps on the card once (``run_sweep`` counted
+    through a wrapper here), later tuned loads read the profile, and
+    default and tuned loads are timed in turns (default, tuned, tuned,
+    default), every CSR bitwise;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1219,6 +1240,333 @@ def phase_serving(torch, repro_torch, kernels, path22, oracle, snap_paths,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the sharded load and the tuner
+# ---------------------------------------------------------------------------
+
+def rank_rows(torch, csr, what):
+    """``(offsets, valid targets, num_vertices, row_start)`` of a rank's
+    sharded CSR, on the host, after checking it is on the card with int32
+    offsets and -1 past the valid prefix of its receive-sized targets."""
+    n = int(csr.offsets[-1])
+    require(csr.offsets.is_cuda and csr.targets.is_cuda
+            and csr.offsets.dtype == torch.int32
+            and bool((csr.targets[n:] == -1).all()),
+            f"{what}: on the card, int32 offsets, -1 past the valid prefix")
+    return (csr.offsets.cpu().numpy(), csr.targets[:n].cpu().numpy(),
+            csr.num_vertices, csr.row_start)
+
+
+def check_rows(rows_of_k, oracle, k, d, what):
+    """Rank ``k``'s rows of a ``d``-way sharded CSR (:func:`rank_rows`)
+    against the oracle, bitwise, in the reference's layout: ``ceil(V/d)``
+    rows from ``k * rows``."""
+    off, tgt, v_got, row_start = rows_of_k
+    off_o, tgt_o, _ = oracle
+    v = off_o.size - 1
+    rows = max(-(-v // d), 1)
+    lo, hi = min(k * rows, v), min((k + 1) * rows, v)
+    require(off.size == rows + 1 and row_start == k * rows and v_got == v,
+            f"{what}: rank {k} holds rows [{k * rows}, {(k + 1) * rows})")
+    e_lo, e_hi = int(off_o[lo]), int(off_o[hi])
+    require(np.array_equal(off[:hi - lo + 1], off_o[lo:hi + 1] - e_lo)
+            and (off[hi - lo:] == e_hi - e_lo).all(), f"{what}: offsets")
+    require(np.array_equal(tgt, tgt_o[e_lo:e_hi]), f"{what}: targets")
+
+
+@contextlib.contextmanager
+def spy_on(module, name, record):
+    """For the block, ``module.name(*args, **kw)`` calls ``record(real,
+    args, kw)``, which calls the real function and notes what it wants."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        return record(real, args, kw)
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+SHARD_STAGES = ("stream_shards", "bucket_histogram", "bucket_by_owner",
+                "exchange_by_owner", "build_local_csr")
+
+
+def staged_load(torch, distributed, load):
+    """``load()`` with each stage of the sharded load timed (seconds per
+    stage, the card synchronized around each; ``exchange_by_owner``
+    includes ``bucket_by_owner``, and ``exchange_collectives_s`` is the
+    rest of it: the size check's gather and the ``all_to_all`` s)."""
+    times = {}
+    with contextlib.ExitStack() as stack:
+        for name in SHARD_STAGES:
+            def record(real, args, kw, name=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*args, **kw)
+                torch.cuda.synchronize()
+                times[name + "_s"] = time.perf_counter() - t0
+                return out
+            stack.enter_context(spy_on(distributed, name, record))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load()
+        torch.cuda.synchronize()
+        times["load_s"] = time.perf_counter() - t0
+    times["exchange_collectives_s"] = (times["exchange_by_owner_s"]
+                                       - times["bucket_by_owner_s"])
+    return times
+
+
+def sharded_caps(seen):
+    """A ``record`` for :func:`spy_on` over ``distributed.load_csr_sharded``:
+    keeps the ``send_cap`` and ``edge_limit`` the stream measured."""
+    def record(real, args, kw):
+        seen.update(send_cap=kw["send_cap"], edge_limit=kw["edge_limit"])
+        return real(*args, **kw)
+    return record
+
+
+def shard_rank(cfg_path) -> int:
+    """One rank of a world of :func:`run_world`: the scale-22 text loaded
+    twice through ``csr_sharded``, the second timed, launches counted for
+    each, and once more with its stages timed; the rows written for the
+    parent to check; then ``shard-reexec`` on the same world, bitwise
+    against the clean rows.  Rank k runs on card ``k % cards``."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import distributed, faults
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.scripts import local_world
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(int(os.environ["RANK"])
+                          % torch.cuda.device_count())
+    mesh, rank, world = local_world.join(cfg["backend"], "cuda")
+    row = {"rank": rank, "world": world}
+    try:
+        caps = {}
+        with spy_on(distributed, "load_csr_sharded", sharded_caps(caps)):
+            for turn in (1, 2):
+                csr, sec, lc = counted(torch, kernels, lambda: repro_torch.
+                                       open_graph(cfg["path"]).csr_sharded(
+                                           mesh))
+                need(lc, LOAD_KERNELS, f"d={world} rank {rank} load {turn}")
+                row[f"load{turn}_s"], row[f"launches{turn}"] = sec, lc
+        row.update(caps)
+        row["stages"] = staged_load(torch, distributed, lambda: repro_torch.
+                                    open_graph(cfg["path"]).csr_sharded(mesh))
+        off, tgt, row["num_vertices"], row["row_start"] = rank_rows(
+            torch, csr, f"d={world} rank {rank}")
+        np.save(os.path.join(cfg["out"], f"offsets{rank}.npy"), off)
+        np.save(os.path.join(cfg["out"], f"targets{rank}.npy"), tgt)
+        row["receive_slots"] = csr.targets.numel()
+        del off, tgt
+        faults.reset_counters()
+        plan = FaultPlan([FaultSpec("block", "oserror", index=0, times=3)],
+                         seed=SEED)
+        faulty, row["reexec_s"], _ = counted(
+            torch, kernels, lambda: repro_torch.open_graph(
+                cfg["path"], faults=plan).csr_sharded(mesh))
+        require(torch.equal(faulty.offsets, csr.offsets)
+                and torch.equal(faulty.targets, csr.targets),
+                f"shard-reexec rank {rank}: bitwise equal to the clean load")
+        row["reexec_counters"] = faults.counters()
+    finally:
+        local_world.leave()
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    return 0
+
+
+def run_world(path22, oracle, world, backend):
+    """A world of ``world`` ranks of this script (:func:`shard_rank`) over
+    ``backend``, each rank's rows held bitwise against the oracle here.
+    Returns ``(row, launches)``: the world's wall time and every rank's
+    report, and the launches of the ranks' timed loads, summed."""
+    from repro_torch.scripts import local_world
+    out = os.path.join(OUT, f"world{world}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = os.path.join(out, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"path": path22, "out": out, "backend": backend}, f)
+    t0 = time.perf_counter()
+    runs = local_world.spawn([sys.executable, os.path.abspath(__file__),
+                              "--shard-rank", cfg], world, timeout=420,
+                             workdir=out)
+    row = {"world_s": time.perf_counter() - t0, "backend": backend,
+           "ranks": []}
+    what = f"d={world} over {backend}"
+    for k, run in enumerate(runs):
+        require(run.returncode == 0, f"{what}: rank {k} exited "
+                f"{run.returncode}:\n{run.stdout[-3000:]}"
+                f"{run.stderr[-3000:]}")
+        with open(os.path.join(out, f"rank{k}.json")) as f:
+            rank_row = json.load(f)
+        check_rows((np.load(os.path.join(out, f"offsets{k}.npy")),
+                    np.load(os.path.join(out, f"targets{k}.npy")),
+                    rank_row["num_vertices"], rank_row["row_start"]),
+                   oracle, k, world, f"{what}: rank {k}")
+        row["ranks"].append(rank_row)
+    retries = [r["reexec_counters"]["shard_retries"] for r in row["ranks"]]
+    require(sorted(retries) == [0] * (world - 1) + [1],
+            f"{what}: shard-reexec re-executed one shard once ({retries})")
+    shutil.rmtree(out, ignore_errors=True)
+    launches = {name: sum(r["launches2"][name] for r in row["ranks"])
+                for name in row["ranks"][0]["launches2"]}
+    return row, launches
+
+
+def sharded_across_cards(torch, cards: int) -> int:
+    """``--cards N``: the sharded load as it is deployed, one rank a card
+    over NCCL, in worlds of 1 and of N ranks on the scale-22 text, each
+    rank's rows bitwise against the oracle.  Prints one JSON line and
+    writes ``build/repro_torch/chip_smoke_cards.json``."""
+    from repro_torch.core import env
+    from repro_torch.kernels import _lib
+    require(torch.cuda.device_count() >= cards,
+            f"--cards {cards}: {torch.cuda.device_count()} card(s) here")
+    _lib.lib()                        # built once, before the ranks start
+    p22, s22, d22, _ = make_graph("rmat22.el", MAIN_SCALE, False, False, SEED)
+    oracle = csr_oracle(s22, d22, None, int(max(s22.max(), d22.max())) + 1)
+    del s22, d22
+    report = {"platform": env.platform_profile()}
+    for world in (1, cards):
+        report[f"d{world}"], report[f"d{world}_launches"] = run_world(
+            p22, oracle, world, "nccl")
+        say(json.dumps({f"nccl_d{world}": report[f"d{world}"]}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    report["nvidia_smi"] = smi
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "chip_smoke_cards.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    for line in smi:
+        say(line)
+    return 0
+
+
+def phase_sharded(torch, repro_torch, kernels, path22, oracle, report):
+    """The sharded load and the tuner on the card (phase 3e).  Returns the
+    launch counts per path."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import distributed, tune
+    t_phase = time.perf_counter()
+    row, launches = {}, {}
+    num_edges = int(oracle[0][-1])
+
+    # 1. world size 1 over NCCL, at full width, in this process
+    init = os.path.join(OUT, "world1.rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        d1 = {}
+        with spy_on(distributed, "load_csr_sharded", sharded_caps(d1)):
+            for turn in (1, 2):
+                csr, sec, lc = counted(torch, kernels, lambda: repro_torch.
+                                       open_graph(path22).csr_sharded(mesh))
+                need(lc, LOAD_KERNELS, f"d=1 load {turn}")
+                check_rows(rank_rows(torch, csr, f"d=1 load {turn}"),
+                           oracle, 0, 1, f"d=1 load {turn}")
+                d1[f"load{turn}_s"] = sec
+                del csr
+        d1.update(edges_per_s=num_edges / d1["load2_s"], launches=lc)
+        d1["stages"] = staged_load(torch, distributed, lambda: repro_torch.
+                                   open_graph(path22).csr_sharded(mesh))
+        launches["sharded_d1"] = lc
+        p20, s20, d20, _ = make_graph("rmat20.el", FRAMED_SCALE, False,
+                                      False, SEED + 30)
+        framed = p20 + ".z"
+        if not os.path.exists(framed):
+            from repro_torch.core import codecs
+            codecs.compress_file_framed(p20, framed, codec="zlib", level=1)
+        csr, d1["framed20_s"], lc = counted(
+            torch, kernels,
+            lambda: repro_torch.open_graph(framed).csr_sharded(mesh))
+        need(lc, LOAD_KERNELS, "d=1 framed scale-20 load")
+        check_rows(rank_rows(torch, csr, "d=1 framed scale-20 load"),
+                   csr_oracle(s20, d20, None, int(max(s20.max(), d20.max()))
+                              + 1), 0, 1, "d=1 framed scale-20 load")
+        launches["sharded_d1 framed20"] = lc
+        del csr, s20, d20
+        row["d1"] = d1
+    finally:
+        dist.destroy_process_group()
+    say(json.dumps({"sharded_d1": row["d1"]}))
+
+    # 2. a world of 2 ranks over gloo, both on cuda:0: a test of the
+    # exchange at d > 1 on the card, not a deployment (NCCL refuses two
+    # ranks on one card)
+    d2, launches["sharded_d2"] = run_world(path22, oracle, 2, "gloo")
+    row["d2"] = d2
+    say(json.dumps({"sharded_d2": d2}))
+
+    # 3. the tuner: a fresh profile, one sweep on the card, then a hit
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(OUT, "tune.json")
+    tune.clear_cache()
+    sweeps = []
+
+    def record(real, args, kw):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = real(*args, **kw)
+        torch.cuda.synchronize()
+        sweeps.append({"seconds": time.perf_counter() - t0, "rows": rows,
+                       "launches": {n: kernels.LAUNCHES[n] - before[n]
+                                    for n in before}})
+        return rows
+
+    tn = {}
+    with spy_on(tune, "run_sweep", record):
+        csr, tn["first_tuned_s"], lc = counted(
+            torch, kernels, lambda: repro_torch.open_graph(
+                path22, tune=True).csr())
+        require(len(sweeps) == 1, f"tune: one sweep on a fresh profile "
+                f"({len(sweeps)})")
+        check_csr(csr, oracle, False, "tuned load (with its sweep)")
+        del csr
+        need(sweeps[0]["launches"], ("parse_accumulate",), "tune sweep")
+        launches["tune_sweep"] = sweeps[0]["launches"]
+        for name, kind in (("default_s", False), ("tuned_s", True),
+                           ("tuned_again_s", True), ("default_again_s",
+                                                     False)):
+            csr, tn[name], lc = counted(
+                torch, kernels, lambda: repro_torch.open_graph(
+                    path22, tune=kind).csr())
+            check_csr(csr, oracle, False, f"tune: {name}")
+            need(lc, LOAD_KERNELS, f"tune: {name}")
+            if kind:
+                launches["tuned load"] = lc
+            del csr
+        require(len(sweeps) == 1, "tune: the profile was read, no sweep")
+    with open(tune.cache_path()) as f:
+        prof = json.load(f)
+    slot = prof["hosts"][tune.host_key(torch.device("cuda", 0))]["unweighted"]
+    tn.update(sweep_s=sweeps[0]["seconds"], sweep=sweeps[0]["rows"],
+              winner={"beta": slot["beta"],
+                      "batch_blocks": slot["batch_blocks"]},
+              profile_key=tune.host_key(torch.device("cuda", 0)))
+    tune.clear_cache()
+    row["tune"] = tn
+    say(json.dumps({"tune": tn}))
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["launches"] = launches
+    report["sharded"] = {k: row[k] for k in ("d1", "d2", "phase_s")}
+    report["tune"] = tn
+    say("phase 3e: the sharded load (d=1 over NCCL, d=2 over gloo) and the "
+        "tuner check out on the card")
+    return launches
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -1666,6 +2014,10 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of another commit whose kernels to "
                          "time in turns with these")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="only the sharded load, over NCCL: worlds of 1 "
+                         "and N ranks, one card each (needs N cards)")
+    ap.add_argument("--shard-rank", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1675,6 +2027,10 @@ def main() -> int:
               f"the script from the root of a checkout", file=sys.stderr)
         return 3
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.shard_rank:                  # a rank of phase 3e's world
+        return shard_rank(args.shard_rank)
+    if args.cards:
+        return sharded_across_cards(torch, args.cards)
     import repro_torch
     from repro_torch import kernels
     from repro_torch.core import env
@@ -1743,6 +2099,8 @@ def main() -> int:
         report))
     for p in snap_paths.values():
         os.remove(p)
+    by_path.update(phase_sharded(torch, repro_torch, kernels, p22, oracle22,
+                                 report))
     del oracle22
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)

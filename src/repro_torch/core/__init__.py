@@ -11,6 +11,14 @@ Public API:
                                             "neighbors", vertex=v))
     slice_csr                            -- rows [lo, hi) as a row-local CSR
     load_edgelist, load_csr, read_csr    -- thin wrappers over a GraphSource
+    load_csr_sharded_stream,
+    load_csr_sharded, host_shard_and_load-- the sharded load over a
+                                            torch DeviceMesh, one process
+                                            per rank (GraphSource.
+                                            csr_sharded(mesh) is its front
+                                            door)
+    tune                                 -- measured block geometry
+                                            (open_graph(tune=True))
     convert_to_csr, symmetrize           -- in-memory EdgeList transforms
     save_snapshot, read_snapshot,
     Snapshot                             -- the .gvel container
@@ -38,11 +46,13 @@ from .codecs import (available_codecs, compress_file_framed, get_codec,
                      register_codec, write_framed)
 from .generate import (grid_edges, make_graph_file, rmat_edges,
                        uniform_edges, write_edgelist)
+from .distributed import (host_shard_and_load, load_csr_sharded,
+                          load_csr_sharded_stream)
 from .faults import (CorruptGraphError, FaultPlan, FaultSpec, ShardLoadError,
                      StageTimeout, fault_plan, plan_from_env, set_fault_plan)
-from . import (blocks, build, cache, codecs, csr, degrees, edgelist, env,
-               faults, generate, indexing, loader, mtx, parse, snapshot,
-               source)
+from . import (blocks, build, cache, codecs, csr, degrees, distributed,
+               edgelist, env, faults, generate, indexing, loader, mtx, parse,
+               snapshot, source, tune)
 
 __all__ = [
     "CSR", "EdgeList", "GraphMeta",
@@ -58,9 +68,10 @@ __all__ = [
     "read_mtx", "read_mtx_csr", "write_mtx", "mtx_to_snapshot",
     "make_graph_file", "rmat_edges", "uniform_edges", "grid_edges",
     "write_edgelist",
+    "load_csr_sharded", "load_csr_sharded_stream", "host_shard_and_load",
     "FaultPlan", "FaultSpec", "StageTimeout", "ShardLoadError",
     "CorruptGraphError", "set_fault_plan", "fault_plan", "plan_from_env",
-    "blocks", "build", "cache", "codecs", "csr", "degrees", "edgelist",
-    "env", "faults", "generate", "indexing", "loader", "mtx", "parse",
-    "snapshot", "source",
+    "blocks", "build", "cache", "codecs", "csr", "degrees", "distributed",
+    "edgelist", "env", "faults", "generate", "indexing", "loader", "mtx",
+    "parse", "snapshot", "source", "tune",
 ]

@@ -73,6 +73,55 @@ def owned_range(plan: BlockPlan) -> tuple:
     return plan.overlap, plan.overlap + plan.beta
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardSpan:
+    """Shard ``shard``-of-``num_shards``'s contiguous slice of a BlockPlan.
+
+    The split is block-aligned, which makes it safe: a line is owned by the
+    block holding its terminating newline, and a block's left context comes
+    from its own staged ``overlap`` bytes, so any contiguous block range
+    parses exactly the lines it owns.  A framed file's plan has its beta
+    forced to the frame size, so the split is frame-aligned too."""
+
+    plan: BlockPlan
+    shard: int
+    num_shards: int
+    block_lo: int      # first owned block (inclusive)
+    block_hi: int      # past-the-end block; == block_lo for an empty span
+
+    @property
+    def num_blocks(self) -> int:
+        return self.block_hi - self.block_lo
+
+    @property
+    def byte_lo(self) -> int:
+        """First owned file byte (post-header coordinates)."""
+        return min(self.block_lo * self.plan.beta, self.plan.file_len)
+
+    @property
+    def byte_hi(self) -> int:
+        """Past-the-end owned file byte."""
+        return min(self.block_hi * self.plan.beta, self.plan.file_len)
+
+    @property
+    def edge_cap(self) -> int:
+        """Accumulator slots this span needs (over-allocation bound)."""
+        return self.num_blocks * self.plan.edge_cap
+
+
+def shard_plan(plan: BlockPlan, k: int, d: int) -> ShardSpan:
+    """Shard ``k``'s span of ``plan`` split into ``d`` contiguous block
+    ranges: balanced to within one block, ordered (shard k's bytes precede
+    shard k+1's, which keeps the exchanged edges in file order), disjoint
+    and covering every block.  Shards past ``num_blocks`` get empty spans."""
+    if d < 1:
+        raise ValueError(f"num_shards must be >= 1, got {d}")
+    if not 0 <= k < d:
+        raise ValueError(f"shard index {k} outside [0, {d})")
+    nb = plan.num_blocks
+    return ShardSpan(plan, k, d, (k * nb) // d, ((k + 1) * nb) // d)
+
+
 def block_view(flat: np.ndarray, plan: BlockPlan) -> np.ndarray:
     """Read-only ``(nb, buf_len)`` rows over a flat span (rows alias)."""
     nb = (len(flat) - plan.buf_len) // plan.beta + 1
@@ -229,22 +278,36 @@ class SequentialBlockSource:
     input).  ``length`` is the total expected after dropping the first
     ``skip`` bytes.  Batches must come in order with consecutive block ids,
     as the streaming loader asks for them; pending bytes are kept as a
-    queue of zero-copy chunk views, so memory stays O(batch).  ``finish``
-    drains the stream and raises ``ValueError`` unless it held exactly
-    ``length`` bytes (truncated file, lying gzip trailer)."""
+    queue of zero-copy chunk views, so memory stays O(batch).
+
+    A source may cover only a span of the stream (one shard's, in the
+    sharded load): ``start`` is the post-skip position of the first chunk
+    byte, ``end`` the past-the-end position the source must cover, and
+    ``first_block`` the first block ``stage`` is asked for.  ``start`` must
+    not exceed ``first_block * beta - overlap``.
+
+    ``finish`` checks coverage: a source whose span reaches the stream end
+    drains it and raises ``ValueError`` unless it held exactly ``length``
+    bytes (truncated file, lying gzip trailer); a mid-stream span raises
+    unless the stream reached ``end``."""
 
     def __init__(self, chunks, length: int, *, skip: int = 0,
+                 start: int = 0, end: Optional[int] = None,
+                 first_block: int = 0,
                  describe: str = "byte stream", mismatch_hint: str = ""):
         self._chunks = iter(chunks)
         self.length = max(int(length), 0)
         self._to_skip = skip
+        self._start = min(max(int(start), 0), self.length)
+        self._end = self.length if end is None else \
+            min(max(int(end), self._start), self.length)
         self._describe = describe
         self._hint = mismatch_hint
         self._q: List[np.ndarray] = []   # pending chunk views, in order
-        self._q_start = 0                # stream offset of _q[0][0]
+        self._q_start = self._start      # stream offset of _q[0][0]
         self._q_len = 0                  # total bytes queued
         self._produced = 0               # post-skip bytes pulled so far
-        self._next_block = 0
+        self._next_block = int(first_block)
 
     def _pull(self) -> bool:
         chunk = next(self._chunks, None)
@@ -308,11 +371,24 @@ class SequentialBlockSource:
         return flat
 
     def finish(self) -> None:
-        while self._pull():
-            self._q.clear()           # drained bytes are only counted
+        need = self._end - self._start
+        if self._end >= self.length:
+            # the span reaches the stream end: drain, demand the exact total
+            while self._pull():
+                self._q.clear()       # drained bytes are only counted
+                self._q_len = 0
+            if self._produced != need:
+                raise ValueError(
+                    f"{self._describe}: stream decompressed to "
+                    f"{self._start + self._produced} bytes after the header "
+                    f"offset, expected {self.length}{self._hint}")
+            return
+        # a mid-stream span: demand only that the stream covered it
+        while self._produced < need and self._pull():
+            self._q.clear()
             self._q_len = 0
-        if self._produced != self.length:
+        if self._produced < need:
             raise ValueError(
-                f"{self._describe}: stream decompressed to "
-                f"{self._produced} bytes after the header offset, expected "
-                f"{self.length}{self._hint}")
+                f"{self._describe}: stream ended at byte "
+                f"{self._start + self._produced} (after the header offset), "
+                f"before this shard span's end at {self._end}{self._hint}")

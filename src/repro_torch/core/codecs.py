@@ -23,8 +23,8 @@ the plan's block size to ``frame_beta``, so one frame is decompressed per
 block staged.  Every decompression checks frame checksums and declared
 lengths and raises ``ValueError`` on a mismatch.  Frame decodes are the
 ``frame`` fault site, and every block source is wrapped for the ``block``
-site (:mod:`.faults`).  The reference's per-shard sources are not ported
-(ROADMAP Queue 1 item 4).
+site (:mod:`.faults`).  :func:`open_shard_block_source` gives one shard of
+the sharded load a source over only its span of blocks.
 """
 from __future__ import annotations
 
@@ -588,6 +588,11 @@ def peek_bytes(path: str, n: int) -> bytes:
         return b""
 
 
+_GZIP_HINT = (" (multi-member or >4 GiB gzip? the trailer length is "
+              "unreliable there -- recompress with "
+              "repro_torch.core.codecs.compress_file_framed)")
+
+
 def open_block_source(path: str, offset: int = 0):
     """The streaming loader's input factory: ``(block source,
     forced_beta-or-None)``.  Raw files get a random-access source over the
@@ -602,10 +607,7 @@ def open_block_source(path: str, offset: int = 0):
         length = gzip_length_hint(path)
         source = SequentialBlockSource(
             _gzip_chunks(path), length - offset, skip=offset,
-            describe=f"{path} (gzip)",
-            mismatch_hint=" (multi-member or >4 GiB gzip? the trailer "
-                          "length is unreliable there -- recompress with "
-                          "repro_torch.core.codecs.compress_file_framed)")
+            describe=f"{path} (gzip)", mismatch_hint=_GZIP_HINT)
         return _faults.wrap_block_source(source, f"{path} (gzip)"), None
     info = read_framed_header(path)
     where = f"{path} (framed {info.codec.name})"
@@ -625,3 +627,52 @@ def stream_geometry(path: str, offset: int = 0) -> Tuple[int, Optional[int]]:
         return max(gzip_length_hint(path) - offset, 0), None
     info = read_framed_header(path)
     return max(info.orig_len - offset, 0), info.frame_beta
+
+
+def open_shard_block_source(path: str, plan, span, offset: int = 0):
+    """A block source that stages exactly ``span``'s blocks of ``plan``
+    (the plan of :func:`stream_geometry`'s length and forced beta; ``span``
+    a :class:`~.blocks.ShardSpan` with at least one block).  Per codec:
+
+    * raw: a :class:`MemoryBlockSource` over the shared mmap;
+    * framed: the frame headers are a seek index, so the chunks start at the
+      frame holding the span's leftmost needed byte (its first owned byte
+      less ``overlap``) and stop after its last frame; earlier frames are
+      walked by header, never inflated;
+    * gzip: DEFLATE has no seek index, so the shard inflates and drops the
+      prefix before its span (a cost that grows with the shard index).
+    """
+    if span.num_blocks <= 0:
+        raise ValueError(
+            f"shard {span.shard}/{span.num_shards} owns no blocks; "
+            f"callers skip opening sources for empty spans")
+    kind = compression_of(path)
+    tag = f"shard {span.shard}/{span.num_shards}"
+    if kind is None:
+        source = MemoryBlockSource(mmap_bytes(path, offset))
+        return _faults.wrap_block_source(source, f"{path} ({tag})")
+    if kind == "gzip":
+        start = max(span.block_lo * plan.beta - plan.overlap, 0)
+        end = plan.file_len if span.block_hi >= plan.num_blocks \
+            else min(span.block_hi * plan.beta, plan.file_len)
+        where = f"{path} (gzip, {tag})"
+        source = SequentialBlockSource(
+            _gzip_chunks(path), plan.file_len, skip=offset + start,
+            start=start, end=end, first_block=span.block_lo,
+            describe=where, mismatch_hint=_GZIP_HINT)
+        return _faults.wrap_block_source(source, where)
+    info = read_framed_header(path)
+    fb = info.frame_beta
+    # pre-offset byte range the span needs: its blocks and left context
+    start_pre = max(span.block_lo * plan.beta - plan.overlap, 0) + offset
+    end_pre = min(span.block_hi * plan.beta + offset, info.orig_len)
+    frame_lo = min(start_pre // fb, max(info.frame_count - 1, 0))
+    frame_hi = max(min(-(-end_pre // fb), info.frame_count), frame_lo)
+    start = max(frame_lo * fb - offset, 0)
+    where = f"{path} (framed {info.codec.name}, {tag})"
+    source = SequentialBlockSource(
+        _framed_chunks(info, frame_lo, frame_hi), plan.file_len,
+        skip=max(offset - frame_lo * fb, 0), start=start,
+        end=max(end_pre - offset, start), first_block=span.block_lo,
+        describe=where)
+    return _faults.wrap_block_source(source, where)

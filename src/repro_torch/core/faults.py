@@ -56,8 +56,7 @@ DEFAULT_BACKOFF_S = float(os.environ.get("REPRO_IO_BACKOFF_S", "0.005"))
 #: $REPRO_WATCHDOG_S
 WATCHDOG_S = float(os.environ.get("REPRO_WATCHDOG_S", "120"))
 #: extra re-executions of a whole shard span after its in-span retries are
-#: exhausted; $REPRO_SHARD_RETRIES (read by the sharded load, which is not
-#: ported yet)
+#: exhausted; $REPRO_SHARD_RETRIES (read by the sharded load)
 SHARD_RETRIES = max(0, int(os.environ.get("REPRO_SHARD_RETRIES", "2")))
 
 #: OSError errnos retried as transient.  Missing files, permissions and

@@ -62,9 +62,11 @@ class LoadOptions:
     ``device=None`` means CUDA.  ``symmetric=True`` appends every edge's
     reverse (the front door does it once, on the device).  ``engine_kw``
     carries the streaming geometry (``beta``, ``overlap``,
-    ``batch_blocks``) verbatim.  ``faults`` pins a
-    :class:`~.faults.FaultPlan` on the handle: every product runs under it
-    (never expanded into engine keywords).
+    ``batch_blocks``) verbatim.  ``tune=True`` fills the streaming geometry
+    the caller did not pin from the measured profile of this host and
+    device (:mod:`.tune`; the first use sweeps); other engines ignore it.
+    ``faults`` pins a :class:`~.faults.FaultPlan` on the handle: every
+    product runs under it (never expanded into engine keywords).
     """
 
     engine: Optional[str] = None
@@ -73,6 +75,7 @@ class LoadOptions:
     base: int = 1
     num_vertices: Optional[int] = None
     offset: int = 0
+    tune: bool = False
     method: Optional[str] = None
     bin_bits: Optional[int] = None
     device: Any = None
@@ -80,8 +83,8 @@ class LoadOptions:
     engine_kw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     _OWN_FIELDS = ("engine", "weighted", "symmetric", "base",
-                   "num_vertices", "offset", "method", "bin_bits", "device",
-                   "faults")
+                   "num_vertices", "offset", "tune", "method", "bin_bits",
+                   "device", "faults")
 
     def __post_init__(self):
         if self.base not in (0, 1):
@@ -217,10 +220,16 @@ class _DeviceFeed:
 
 def _parse_span(source, plan, block_lo: int, block_hi: int, *,
                 weighted: bool, base: int, batch_blocks: int, cap: int,
-                device: torch.device, describe: str = "block source"
-                ) -> DeviceEdges:
+                device: torch.device, describe: str = "block source",
+                prefetch: bool = True) -> DeviceEdges:
     """Stage and parse blocks ``[block_lo, block_hi)`` of ``plan`` from
-    ``source`` into fresh accumulators of ``cap`` slots on ``device``."""
+    ``source`` into fresh accumulators of ``cap`` slots on ``device``.
+
+    ``prefetch=False`` stages each batch inline in the calling thread, as
+    a shard of the sharded load does (each shard already runs in its own
+    process); the card's parse of batch i still overlaps the staging of
+    batch i+1, and each arena slot is fenced by its copy's event either
+    way."""
     os_, oe = owned_range(plan)
     edge_cap = plan.edge_cap
     nspan = max(block_hi - block_lo, 0)
@@ -266,6 +275,10 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
         if cuda:
             feed.done(i)
 
+    if not prefetch:
+        for i in range(num_batches):
+            consume(i, stage(i))
+        return acc_src, acc_dst, acc_w, total
     # not a with-block: a stuck staging thread is abandoned
     # (shutdown(wait=False)), never joined
     pool = ThreadPoolExecutor(1, thread_name_prefix="loader-prefetch")
@@ -369,10 +382,33 @@ def _register_builtin_engines() -> None:
 # engine-call implementations (shared by GraphSource and the wrappers)
 # ---------------------------------------------------------------------------
 
+def resolve_tuned(opts: LoadOptions, *, shards: int = 1) -> LoadOptions:
+    """``opts`` with the streaming geometry the caller did not pin
+    (``beta``, ``batch_blocks``) filled from the measured profile when
+    ``opts.tune`` is set; the first tuned load on a host and device runs
+    the sweep and keeps its winner (:func:`.tune.tuned_geometry`).  A no-op
+    for engines without block geometry.  ``shards`` picks the sharded
+    load's profile slot: d pipelines over 1/d of the bytes each have
+    another throughput knee than one over all of them."""
+    if not opts.tune or not isinstance(_REGISTRY.get(opts.engine),
+                                       _StreamingEngine):
+        return opts
+    kw = dict(opts.engine_kw)
+    if "beta" in kw and "batch_blocks" in kw:
+        return opts
+    from .tune import tuned_geometry
+    g = tuned_geometry(weighted=bool(opts.weighted), shards=int(shards),
+                       device=opts.device)
+    kw.setdefault("beta", g["beta"])
+    kw.setdefault("batch_blocks", g["batch_blocks"])
+    return opts.replace(engine_kw=kw)
+
+
 def read_edgelist_via(path: str, opts: LoadOptions) -> EdgeList:
     """File -> EdgeList through ``opts.engine`` (must be concrete).  The
     engines return the edges as stored; ``symmetric`` appends the reverse
     edges here, once."""
+    opts = resolve_tuned(opts)
     with engine_for_load(opts.engine) as eng:
         el = eng.read_edgelist(path, **opts.read_kwargs())
     if opts.symmetric:
@@ -392,6 +428,7 @@ def read_csr_via(path: str, opts: LoadOptions, *,
     count unless known, a power-of-two shrink of over-allocated buffers),
     then an EdgeList (``fallback_edgelist``, or a read) + ``convert_to_csr``.
     A symmetric load takes the last route.  Offsets come back int64."""
+    opts = resolve_tuned(opts)
     method = method or opts.method or "staged"
     bin_bits = bin_bits if bin_bits is not None else opts.bin_bits
     weighted = bool(opts.weighted)
@@ -426,6 +463,39 @@ def read_csr_via(path: str, opts: LoadOptions, *,
     return convert_to_csr(el, method=method, rho=rho, bin_bits=bin_bits)
 
 
+def read_csr_sharded_via(path: str, opts: LoadOptions, *, mesh,
+                         axis: str = "data", rho: int = 4,
+                         method: Optional[str] = None,
+                         bin_bits: Optional[int] = None) -> CSR:
+    """File -> this rank's rows of the CSR sharded across ``mesh`` along
+    ``axis`` (:func:`.distributed.load_csr_sharded_stream`): each rank
+    streams its own byte span, and the edges reach their owners in one
+    ``all_to_all``.  Only the streaming engine has a byte-range plan;
+    ``tune=True`` resolves against the per-shard-count profile slot."""
+    from . import distributed
+    _group, d, _k = distributed._axis(mesh, axis)
+    opts = resolve_tuned(opts, shards=d)
+    if opts.symmetric:
+        raise ValueError(
+            "sharded streaming load does not support symmetric=True "
+            "(reverse-edge expansion is a host concatenation; load the "
+            "CSR unsharded or pre-symmetrize the file)")
+    if not isinstance(get_engine(opts.engine), _StreamingEngine):
+        raise ValueError(
+            f"engine {opts.engine!r} has no sharded streaming path; use a "
+            f"streaming engine ('device')")
+    kw = opts.stream_kwargs()
+    dev = kw.pop("device")            # the mesh says where the rows live
+    if dev is not None and torch.device(dev).type != mesh.device_type:
+        raise ValueError(
+            f"the load's device {dev} is not on the mesh's device type "
+            f"{mesh.device_type!r}")
+    return distributed.load_csr_sharded_stream(
+        mesh, axis, path, num_vertices=opts.num_vertices, rho=rho,
+        method=method or opts.method or "staged",
+        bin_bits=bin_bits if bin_bits is not None else opts.bin_bits, **kw)
+
+
 # ---------------------------------------------------------------------------
 # front door (thin wrappers over repro_torch.core.source.open_graph)
 # ---------------------------------------------------------------------------
@@ -433,15 +503,17 @@ def read_csr_via(path: str, opts: LoadOptions, *,
 def load_edgelist(path: str, *, engine: str = DEFAULT_EDGELIST_ENGINE,
                   weighted: bool = False, symmetric: bool = False,
                   base: int = 1, num_vertices: Optional[int] = None,
-                  offset: int = 0, device=None, **engine_kw) -> EdgeList:
+                  offset: int = 0, device=None, tune: bool = False,
+                  **engine_kw) -> EdgeList:
     """File -> EdgeList on ``device`` (default CUDA); the same as
     ``open_graph(path, ...).edgelist()``.  ``.gvel`` files route to the
-    snapshot engine whatever ``engine`` says."""
+    snapshot engine whatever ``engine`` says; ``tune=True`` fills unpinned
+    streaming geometry from the measured profile."""
     from .source import open_graph
     return open_graph(path, engine=engine, weighted=weighted,
                       symmetric=symmetric, base=base,
                       num_vertices=num_vertices, offset=offset,
-                      device=device,
+                      device=device, tune=tune,
                       **engine_kw).edgelist()
 
 
@@ -449,16 +521,17 @@ def load_csr(path: str, *, engine: str = DEFAULT_CSR_ENGINE,
              weighted: bool = False, symmetric: bool = False, base: int = 1,
              num_vertices: Optional[int] = None, method: str = "staged",
              rho: int = 4, bin_bits: Optional[int] = None, offset: int = 0,
-             device=None, **engine_kw) -> CSR:
+             device=None, tune: bool = False, **engine_kw) -> CSR:
     """File -> CSR on ``device`` (default CUDA); the same as
     ``open_graph(path, ...).csr(method=..., rho=..., bin_bits=...)``.  A
     ``.gvel`` file's embedded CSR is served as stored (``method`` does not
-    apply)."""
+    apply); ``tune=True`` fills unpinned streaming geometry from the
+    measured profile."""
     from .source import open_graph
     return open_graph(path, engine=engine, weighted=weighted,
                       symmetric=symmetric, base=base,
                       num_vertices=num_vertices, offset=offset,
-                      device=device, **engine_kw).csr(
+                      device=device, tune=tune, **engine_kw).csr(
                           method=method, rho=rho, bin_bits=bin_bits)
 
 

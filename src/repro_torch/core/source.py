@@ -32,10 +32,12 @@ by threads (the serving cache does so): a cold product is built once, under
 the handle's lock, and published only when its device work is complete, so
 a thread on another CUDA stream never reads a product still being built.
 
+``csr_sharded(mesh)`` gives each rank of a ``DeviceMesh`` its rows of the
+CSR (:mod:`.distributed`); ``open_graph(path, tune=True)`` fills unpinned
+streaming geometry from the measured profile (:mod:`.tune`).
+
 ``python -m repro_torch.core.source <path> [--device cpu]`` prints
-``info()`` as JSON.  ``csr_sharded`` and ``open_graph(tune=True)`` raise
-``NotImplementedError`` until ROADMAP Queue 1 items 4 and 3 port the
-sharded load and the autotuner.
+``info()`` as JSON.
 """
 from __future__ import annotations
 
@@ -50,15 +52,13 @@ from .env import resolve_device
 from .faults import fault_plan
 from .loader import (DEFAULT_CSR_ENGINE, DEFAULT_EDGELIST_ENGINE, LoadOptions,
                      available_engines, engine_for_load, get_engine,
-                     read_csr_via, read_edgelist_via)
+                     read_csr_sharded_via, read_csr_via, read_edgelist_via,
+                     resolve_tuned)
 from .types import CSR, EdgeList
 
 FORMAT_GVEL = "gvel"
 FORMAT_MTX = "mtx"
 FORMAT_TEXT = "text"
-
-_SHARDED_ITEM = "ROADMAP Queue 1 item 4 (the sharded load)"
-_TUNE_ITEM = "ROADMAP Queue 1 item 3 (the autotuner)"
 
 
 def _normalize_rows(rows) -> Tuple[int, int]:
@@ -174,6 +174,8 @@ class GraphSource:
         self._el: Optional[EdgeList] = None
         self._el_engine: Optional[str] = None
         self._csrs: Dict[Tuple[str, int, Optional[int]], CSR] = {}
+        self._sharded_csrs: Dict[Tuple[Any, str, int, str, Optional[int]],
+                                 CSR] = {}
         self._mtx_hdr = None
         self._gvel_peek = None                # (version, flags, V, E, entries)
         self._framed_hdr = None               # codecs.FramedInfo
@@ -451,9 +453,49 @@ class GraphSource:
         _full, lo, hi = self._row(u)
         return hi - lo
 
-    def csr_sharded(self, *args, **kw):
-        raise NotImplementedError(
-            f"GraphSource.csr_sharded is not ported yet: {_SHARDED_ITEM}")
+    def csr_sharded(self, mesh, *, axis: str = "data", rho: int = 4,
+                    method: Optional[str] = None,
+                    bin_bits: Optional[int] = None) -> CSR:
+        """This rank's rows of the CSR sharded across ``mesh`` (a
+        ``torch.distributed`` ``DeviceMesh``) along ``axis``; every rank of
+        the axis makes the call.  Computed on first call per ``(mesh, axis,
+        rho, method, bin_bits)`` and memoized on the handle.
+
+        Each rank streams only its byte span of the file
+        (:func:`~.blocks.shard_plan`; a line belongs to the block holding
+        its newline, so no edge is parsed twice) and the packed edges reach
+        their owners in one ``all_to_all`` (:mod:`.distributed`).  The
+        result is row-local: int32 offsets of ``rows = ceil(V/d)`` rows from
+        ``row_start = k * rows``, and the receive-sized ``targets`` and
+        ``weights``, on the mesh's device.  Only text edgelists
+        shard this way: MTX raises (its banner applies to :meth:`csr`
+        only), and so do ``.gvel`` snapshots (no text to split)."""
+        if self.format == FORMAT_MTX:
+            raise ValueError(
+                f"{self.path}: csr_sharded() does not apply MTX banner "
+                f"attributes; convert to a plain edgelist first or use "
+                f".csr()")
+        if self.format == FORMAT_GVEL:
+            raise ValueError(
+                f"{self.path}: .gvel snapshots are already parsed — "
+                f"byte-range sharded streaming applies to text "
+                f"edgelists; use .csr() and shard the result, or keep "
+                f"the original text file for sharded loads")
+        method = self._build_method(method)
+        if bin_bits is None:
+            bin_bits = self.options.bin_bits
+        key = (mesh, axis, int(rho), method, bin_bits)
+        csr = self._sharded_csrs.get(key)
+        if csr is None:
+            with self._build_lock, fault_plan(self.options.faults):
+                csr = self._sharded_csrs.get(key)
+                if csr is None:
+                    csr = self._complete(read_csr_sharded_via(
+                        self.path, self._opts_for("csr"), mesh=mesh,
+                        axis=axis, rho=rho, method=method,
+                        bin_bits=bin_bits))
+                    self._sharded_csrs[key] = csr
+        return csr
 
     def _edgelist_for(self, opts: LoadOptions) -> EdgeList:
         """EdgeList through ``opts.engine``, sharing the memo when the
@@ -495,7 +537,7 @@ class GraphSource:
             raise ValueError(
                 f"{self.path}: stream() does not apply MTX banner "
                 f"attributes; use .edgelist() or .csr()")
-        opts = self._opts_for("csr")
+        opts = resolve_tuned(self._opts_for("csr"))
         with engine_for_load(opts.engine) as eng, fault_plan(opts.faults):
             if not hasattr(eng, "stream"):
                 raise ValueError(f"engine {opts.engine!r} has no stream "
@@ -571,14 +613,12 @@ def open_graph(path: str, *, engine: Optional[str] = None,
     checks at open, never touching section payloads.  ``engine_kw`` carries
     the streaming geometry (``beta``, ``overlap``, ``batch_blocks``).
     ``faults`` pins a :class:`~.faults.FaultPlan` on the handle: every
-    product runs under it.  ``tune=True`` raises ``NotImplementedError``
-    until the autotuner is ported."""
-    if tune:
-        raise NotImplementedError(
-            f"open_graph(tune=True) is not ported yet: {_TUNE_ITEM}")
+    product runs under it.  ``tune=True`` fills the streaming geometry not
+    pinned in ``engine_kw`` from the measured profile of this host and
+    device (:mod:`.tune`; the first use sweeps and keeps the winner)."""
     opts = LoadOptions(engine=engine, weighted=weighted, symmetric=symmetric,
                        base=1 if base is None else base,
-                       num_vertices=num_vertices, offset=offset,
+                       num_vertices=num_vertices, offset=offset, tune=tune,
                        method=method, bin_bits=bin_bits, device=device,
                        faults=faults, engine_kw=dict(engine_kw))
     return GraphSource(path, opts, validate=validate)

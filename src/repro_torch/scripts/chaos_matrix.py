@@ -13,14 +13,20 @@ each printing one OK line:
                     (path, section) with a structured CorruptGraphError
                     while sibling sections and other graphs serve, and a
                     swap on disk recovers
+  shard-reexec      a shard of the sharded load whose in-span retries run
+                    out re-executes its byte span, bitwise equal to the
+                    fault-free load; one that never recovers raises
+                    ShardLoadError on every rank.  Runs a world of 2 ranks
+                    on ``--device`` (gloo, or NCCL with a card per rank);
+                    like the reference's, only when asked for
 
-The reference's other two scenarios wait for their modules:
-``sigterm-resume`` needs ``ft.Coordinator`` (ROADMAP Queue 1 item 5) and
-``shard-reexec`` the sharded load (Queue 1 item 4).
+The reference's ``sigterm-resume`` needs ``ft.Coordinator`` (ROADMAP Queue 1
+item 5).
 
     python -m repro_torch.scripts.chaos_matrix                 # on CUDA
     python -m repro_torch.scripts.chaos_matrix --device cpu
     python -m repro_torch.scripts.chaos_matrix --scenario stuck-reader
+    python -m repro_torch.scripts.chaos_matrix --scenario shard-reexec
 """
 from __future__ import annotations
 
@@ -39,9 +45,11 @@ from repro_torch.core import (convert_to_csr, faults, load_edgelist,
 from repro_torch.core import snapshot as snapmod
 from repro_torch.core.cache import SourceCache
 from repro_torch.core.faults import (CorruptGraphError, FaultPlan, FaultSpec,
-                                     StageTimeout, fault_plan)
+                                     ShardLoadError, StageTimeout, fault_plan)
 
-SCENARIOS_RUN = ("transient-retry", "stuck-reader", "quarantine-swap")
+LOCAL_SCENARIOS = ("transient-retry", "stuck-reader", "quarantine-swap")
+ALL_SCENARIOS = LOCAL_SCENARIOS + ("shard-reexec",)
+SHARD_WORLD = 2
 
 
 def _graph(tmp, name, seed, *, scale=8, kind="rmat"):
@@ -198,10 +206,83 @@ def scenario_quarantine_swap(tmp, seed, device):
           f"swap recovered OK")
 
 
+def scenario_shard_reexec(tmp, seed, device):
+    """Exhausted in-span retries escalate to a re-execution of the shard's
+    whole span, bitwise equal to the fault-free sharded load; run in a
+    world of :data:`SHARD_WORLD` ranks (:func:`shard_reexec_rank`)."""
+    import repro_torch
+    from repro_torch.scripts import local_world
+    el, _v = _graph(tmp, "shard", seed)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    runs = local_world.spawn(
+        [sys.executable, "-m", "repro_torch.scripts.chaos_matrix",
+         "--seed", str(seed), "--device", device or "cuda",
+         "--shard-rank-of", el], SHARD_WORLD, timeout=600, env=env,
+        workdir=tmp)
+    for k, run in enumerate(runs):
+        _require(run.returncode == 0,
+                 f"shard-reexec rank {k} exited {run.returncode}:\n"
+                 f"{run.stdout}{run.stderr}")
+    oks = [ln for run in runs for ln in run.stdout.splitlines()
+           if ln.startswith("rank ")]
+    _require(len(oks) == SHARD_WORLD, f"rank reports: {oks}")
+    print(f"chaos[shard-reexec]: d={SHARD_WORLD}, 1 shard re-execution "
+          f"bitwise equal, ShardLoadError on every rank with a "
+          f"{faults.SHARD_RETRIES + 1}-line fault log on the failed one OK")
+
+
+def shard_reexec_rank(el, seed, device):
+    """One rank of ``shard-reexec``: block 0 (shard 0's first) fails three
+    times, which exhausts the in-span retries (``REPRO_IO_RETRIES=3``) and
+    re-executes shard 0 once; then a block that never recovers."""
+    import torch
+    from repro_torch.scripts import local_world
+    dev_type = "cpu" if device == "cpu" else "cuda"
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    backend = "gloo"
+    if dev_type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(rank % cards)
+        if cards >= world:
+            backend = "nccl"          # NCCL takes one card per rank
+    mesh, rank, world = local_world.join(backend, dev_type)
+    try:
+        faults.reset_counters()
+        clean = open_graph(el, beta=2048, device=dev_type).csr_sharded(mesh)
+        plan = FaultPlan([FaultSpec("block", "oserror", index=0, times=3)],
+                         seed=seed)
+        faulty = open_graph(el, beta=2048, device=dev_type,
+                            faults=plan).csr_sharded(mesh)
+        _bitwise(clean, faulty, f"shard-reexec rank {rank}")
+        c = faults.counters()
+        _require(c["shard_retries"] == (1 if rank == 0 else 0), str(c))
+        _require(plan.injected() == ({"block:oserror": 3} if rank == 0
+                                     else {}), str(plan.injected()))
+        with fault_plan(FaultPlan([FaultSpec("block", "oserror", index=0,
+                                             times=-1)], seed=seed)):
+            try:
+                open_graph(el, beta=2048,
+                           device=dev_type).csr_sharded(mesh)
+                raise AssertionError("a permanently failing shard loaded")
+            except ShardLoadError as exc:
+                _require(exc.shard == 0, f"failed shard {exc.shard}")
+                if rank == 0:
+                    _require(len(exc.fault_log) == faults.SHARD_RETRIES + 1,
+                             f"fault log {exc.fault_log}")
+    finally:
+        local_world.leave()
+    print(f"rank {rank}/{world}: {c['shard_retries']} shard re-execution(s), "
+          f"bitwise equal OK")
+
+
 SCENARIOS = {
     "transient-retry": scenario_transient_retry,
     "stuck-reader": scenario_stuck_reader,
     "quarantine-swap": scenario_quarantine_swap,
+    "shard-reexec": scenario_shard_reexec,
 }
 
 
@@ -209,14 +290,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.scripts.chaos_matrix",
         description=__doc__.split("\n")[0])
-    ap.add_argument("--scenario", choices=SCENARIOS_RUN, action="append",
-                    help="run only these (default: all)")
+    ap.add_argument("--scenario", choices=ALL_SCENARIOS, action="append",
+                    help="run only these (default: the local ones, all "
+                    "but shard-reexec)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default=None,
                     help="where the loads run (default CUDA; 'cpu' runs "
                     "the plain PyTorch versions)")
+    ap.add_argument("--shard-rank-of", metavar="EDGELIST",
+                    help=argparse.SUPPRESS)     # a rank of shard-reexec
     args = ap.parse_args(argv)
-    names = args.scenario or list(SCENARIOS_RUN)
+    if args.shard_rank_of:
+        shard_reexec_rank(args.shard_rank_of, args.seed, args.device)
+        return 0
+    names = args.scenario or list(LOCAL_SCENARIOS)
     tmp = tempfile.mkdtemp(prefix="gvel_chaos_")
     try:
         for name in names:

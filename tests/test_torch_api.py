@@ -1,6 +1,6 @@
 """The port's public surface held against the JAX package's on the CPU:
-the ``CSR`` row accessors, every name of ``repro.core.__all__`` (or the
-ROADMAP item it waits for), the refusal of ``tune=`` at open, the small
+the ``CSR`` row accessors, every name of ``repro.core.__all__`` (but the
+host parsers and the jax shim), ``tune=`` at every entry point, the small
 pieces ported with them (``read_csr``, ``csr_to_dense``, ``LoaderEngine``,
 ``generate``), and an import check: the serving modules and the scripts
 load neither jax nor the JAX package.
@@ -23,13 +23,8 @@ import torch_serving as ts
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
-# names of repro.core.__all__ the port does not have yet, and where each
-# waits (ROADMAP.md)
+# names of repro.core.__all__ the port does not have, and why (ROADMAP.md)
 WAITING = {
-    "tune": "Queue 1 item 3",
-    "load_csr_sharded": "Queue 1 item 4",
-    "load_csr_sharded_stream": "Queue 1 item 4",
-    "host_shard_and_load": "Queue 1 item 4",
     "baselines": "not planned: host parsers",
     "parse_np": "not planned: host parsers",
     "read_edgelist": "not planned: host parsers",
@@ -113,17 +108,27 @@ def test_degrees_needs_no_host_sync(tmp_path, monkeypatch):
     assert degs.shape == (csr.num_rows,)
 
 
-# ---- options the port refuses at open ----------------------------------------
+# ---- options taken at open ---------------------------------------------------
 
-def test_tune_is_refused_at_open(tmp_path):
-    path, v, _ = ts.text_file(tmp_path, "t")
-    for call in (lambda: open_graph(path, device="cpu", tune=True),
-                 lambda: repro_torch.load_csr(path, device="cpu", tune=True),
-                 lambda: core.load_edgelist(path, device="cpu", tune=True)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3"):
-            call()
-    assert open_graph(path, device="cpu", tune=False).csr().num_rows == v
+def test_tune_loads_through_every_entry_point(tmp_path, monkeypatch):
+    """``tune=True`` at ``open_graph``, ``load_csr`` and ``load_edgelist``:
+    the first sweeps once (a stand-in sweep here) and keeps the winner, the
+    others read it, and every product equals the untuned one."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    sweeps = []
+    monkeypatch.setattr(core.tune, "run_sweep", lambda *a, **k: sweeps.append(
+        k) or [{"beta": 2048, "batch_blocks": 2, "seconds": 0.1,
+                "mb_per_s": 1.0}])
+    path, v, oracle = ts.text_file(tmp_path, "t")
+    src = open_graph(path, device="cpu", num_vertices=v, tune=True)
+    assert ts.same_csr(src.csr(), oracle)
+    assert ts.same_csr(repro_torch.load_csr(path, device="cpu",
+                                            num_vertices=v, tune=True),
+                       oracle)
+    el = core.load_edgelist(path, device="cpu", tune=True)
+    plain = core.load_edgelist(path, device="cpu")
+    assert ts.same(el.src, plain.src) and ts.same(el.dst, plain.dst)
+    assert len(sweeps) == 1
 
 
 def test_faults_is_accepted_at_open(tmp_path):
@@ -192,9 +197,11 @@ def test_generators_match_reference():
 def test_port_modules_load_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core.cache, "
-            "repro_torch.core.faults, repro_torch.core.generate\n"
+            "repro_torch.core.faults, repro_torch.core.generate, "
+            "repro_torch.core.distributed, repro_torch.core.tune\n"
             "import repro_torch.scripts.convert, "
-            "repro_torch.scripts.chaos_matrix\n"
+            "repro_torch.scripts.chaos_matrix, "
+            "repro_torch.scripts.local_world\n"
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')))\n")

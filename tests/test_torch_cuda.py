@@ -727,3 +727,60 @@ def test_frame_fault_during_the_pinned_ring_copy(cuda_device, weighted_text,
     os.replace(path + ".new", path)
     _same_csr(cache.query(path, "csr"), host.csr())
     assert cache.stats()["faults"]["recovered"] == 1
+
+
+def test_sharded_load_at_world_size_one_over_nccl(cuda_device, weighted_text,
+                                                  tmp_path):
+    """A world of one rank over NCCL: ``csr_sharded`` runs every stage on
+    the card (the parse, the exchange, the local build's histogram and
+    scan) and its rows are ``open_graph(p).csr()``'s, bitwise (that load
+    run on the CPU)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/world",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        kernels.reset_launches()
+        src = repro_torch.open_graph(weighted_text, weighted=True,
+                                     beta=8192)
+        got = src.csr_sharded(mesh)
+        assert min(kernels.LAUNCHES[k] for k in LOAD_KERNELS) > 0
+        assert src.csr_sharded(mesh) is got
+    finally:
+        dist.destroy_process_group()
+    want = repro_torch.open_graph(weighted_text, weighted=True,
+                                  device="cpu").csr()
+    v, e = want.num_rows, int(want.offsets[-1])
+    assert got.offsets.is_cuda and got.offsets.dtype == torch.int32
+    assert got.row_start == 0 and got.num_vertices == v
+    assert _same(got.offsets[:v + 1].long(), want.offsets)
+    assert _same(got.targets[:e], want.targets)
+    assert _same(got.weights[:e], want.weights)
+    assert bool((got.targets[e:] == -1).all())
+
+
+def test_tuned_load_equals_the_default_load(cuda_device, weighted_text,
+                                            tmp_path, monkeypatch):
+    """``tune=True`` on a fresh profile sweeps on the card once, keeps the
+    winner under the card's fingerprint, and loads the default's CSR."""
+    import json
+    from repro_torch.core import env, tune
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(cache))
+    sweeps = []
+    real = tune.run_sweep
+    monkeypatch.setattr(tune, "run_sweep",
+                        lambda *a, **k: sweeps.append(k) or real(*a, **k))
+    tuned = repro_torch.open_graph(weighted_text, weighted=True,
+                                   tune=True).csr()
+    again = repro_torch.open_graph(weighted_text, weighted=True,
+                                   tune=True).csr()
+    assert len(sweeps) == 1 and sweeps[0]["device"] == cuda_device
+    slots = json.loads(cache.read_text())["hosts"][env.fingerprint(
+        cuda_device)]
+    assert set(slots) == {"weighted"} and len(slots["weighted"]["sweep"]) == 9
+    want = repro_torch.open_graph(weighted_text, weighted=True,
+                                  device="cpu").csr()
+    _same_csr(tuned, want)
+    _same_csr(again, want)

@@ -581,3 +581,20 @@ def test_chaos_twin_runs_on_the_cpu():
         "chaos[transient-retry", "chaos[stuck-reader",
         "chaos[quarantine-swap"]
     assert lines[-1] == "chaos matrix: 3 scenario(s) green (seed=3)"
+
+
+def test_chaos_twin_runs_shard_reexec_in_a_cpu_world():
+    """The twin's ``shard-reexec``: two gloo ranks, shard 0 re-executed once
+    and bitwise equal to the clean load, then a shard that never recovers
+    raising ``ShardLoadError`` on both ranks."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    env.pop("REPRO_FAULTS", None)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.scripts.chaos_matrix",
+         "--device", "cpu", "--seed", "3", "--scenario", "shard-reexec"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("chaos[shard-reexec]: d=2, 1 shard "
+                               "re-execution bitwise equal")
+    assert lines[-1] == "chaos matrix: 1 scenario(s) green (seed=3)"

@@ -193,8 +193,9 @@ def test_unported_products_name_their_roadmap_item(graphs, tmp_path):
     # the point reads are ported (tests/test_torch_source.py holds them)
     assert src.degree(0) == src.neighbors(0).numel() == \
         src.csr(rows=(0, 1)).targets.numel()
-    # only the sharded load is left (ROADMAP Queue 1 item 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+    # the sharded load is ported (tests/test_torch_sharded.py holds it); it
+    # needs a DeviceMesh with the axis
+    with pytest.raises(ValueError, match="mesh has no axis 'data'"):
         src.csr_sharded(None)
     # save, symmetric=True, MTX, framed and .gvel inputs are ported
     # (tests/test_torch_{snapshot,codecs,mtx}.py hold them to the reference)

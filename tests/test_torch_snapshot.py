@@ -421,7 +421,7 @@ def test_snapshot_engine_is_registered_and_routed(texts, tmp_path):
         unweighted = _save_pair(tmp_path, texts[(False, 1)][0], False, 1,
                                 "raw", "both")[1]
         repro_torch.open_graph(unweighted, device="cpu", weighted=True).csr()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="snapshots are already parsed"):
         src.csr_sharded(None)
 
 
