@@ -89,6 +89,28 @@ Phases (any failure exits non-zero):
     through a wrapper here), later tuned loads read the profile, and
     default and tuned loads are timed in turns (default, tuned, tuned,
     default), every CSR bitwise;
+3f. (run last, after 3e) walk-LM serving at phi4-mini-3.8b's full width
+    (32 layers, d_model 3072, 24/8 heads of 128, SwiGLU 8192, vocab
+    200,064; 3,836,018,688 parameters, bf16 weights drawn on the card
+    from the seed): argmax takes the first of maxima tied at the served
+    vocab size; a ``ServeRuntime(batch=8, max_seq=128,
+    SourceCache(capacity=4), prompt_len=8)`` over 3c's raw ``.gvel``
+    snapshot and the scale-22 text serves 32 requests alternating between
+    them, 32 new tokens each, and drains; the launch counts are set to 0
+    just before the text's first request and read just after it
+    (``parse_accumulate``, ``degree_histogram`` and ``exclusive_scan`` must
+    launch); every request completes with 32 tokens; each prompt equals
+    the port's ``random_walks`` on the card for its ``(seed, rid)`` and
+    every walk step is an edge or a dead-end self-loop; for 4 requests,
+    every decode step's logits equal ``forward_prefill`` on the card over
+    the prompt and the tokens so far, with no cache, within ``LOGIT_TOL``
+    and the greedy tokens agree wherever the prefill's top-2 margin
+    exceeds it, with cuBLAS's bf16 reduced-precision reduction on (the
+    default) and again off; then tokens/s of the drain, decode-step ms
+    from CUDA events with its spread, launches and device ms per decode
+    step from the profiler, the step's bound (the bf16 weights and the KV
+    cache over 3.35 TB/s), the device's busy share over a traced drain,
+    the text graph's cold load inside its first request, and peak memory;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1567,6 +1589,300 @@ def phase_sharded(torch, repro_torch, kernels, path22, oracle, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: walk-LM serving at phi4-mini-3.8b's full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "phi4-mini-3.8b"
+SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT = 8, 128, 8
+SERVE_REQUESTS, SERVE_NEW = 32, 32
+SERVE_CHECKED = 4         # requests whose every decode step is re-derived
+# a decode step's logits against forward_prefill over the same tokens with
+# no cache: 8 bf16 ulps of the top logits' binade [4, 8).  Both run the
+# same bf16 ops, but cuBLAS picks other kernels for other shapes (M = 8
+# against M = the sequence), and an ulp's flip carries through 32 layers:
+# a scale-18 run on an H100 differed by up to 0.111 (PERF.md, section 6)
+LOGIT_TOL = 0.25
+
+
+def record_tick_logits(eng, rids):
+    """Wrap ``eng``'s decode step: each tick's logits row (kept on the
+    card) of the requests in ``rids``, in order, under their id; the
+    prompt's prefill steps are left out.  Returns the record and a counter
+    of decode calls."""
+    rec, calls, prefilling = {}, [0], [False]
+    decode, step_slot = eng.decode, eng._step_slot
+
+    def in_prefill(*args):
+        prefilling[0] = True
+        try:
+            return step_slot(*args)
+        finally:
+            prefilling[0] = False
+
+    def recorded(*args):
+        calls[0] += 1
+        nxt, logits, caches = decode(*args)
+        if not prefilling[0]:
+            for s, req in enumerate(eng.slots):
+                if req is not None and req.rid in rids:
+                    rec.setdefault(req.rid, []).append(logits[s].clone())
+        return nxt, logits, caches
+
+    eng._step_slot, eng.decode = in_prefill, recorded
+    return rec, calls
+
+
+def cached_decode_check(torch, model, cfg, reqs, rec, what):
+    """Every recorded decode step's logits against ``forward_prefill`` on
+    the card over the prompt plus the tokens so far, with no cache: the
+    largest difference, and the greedy token wherever the prefill's top-2
+    margin exceeds ``LOGIT_TOL``."""
+    from repro_torch.models import forward_prefill
+    worst, total, steps, near = 0.0, 0.0, 0, 0
+    with torch.inference_mode():
+        for req in reqs:
+            seq = list(req.prompt) + req.out
+            require(len(rec[req.rid]) == len(req.out),
+                    f"{what}: every decode step of request {req.rid} kept")
+            for j, got in enumerate(rec[req.rid]):
+                n = len(req.prompt) + j
+                toks = torch.tensor([seq[:n]], dtype=torch.int32,
+                                    device=got.device)
+                want, _ = forward_prefill(model, {"tokens": toks}, cfg,
+                                          SERVE_MAX_SEQ)
+                want = want[0].float()
+                err = (got.float() - want).abs()
+                worst = max(worst, float(err.max()))
+                total += float(err.mean())
+                top2 = torch.topk(want, 2).values
+                if float(top2[0] - top2[1]) > LOGIT_TOL:
+                    require(int(torch.argmax(want)) == req.out[j],
+                            f"{what}: request {req.rid} step {j}: greedy "
+                            f"token agrees with the uncached prefill")
+                else:
+                    near += 1
+                steps += 1
+    require(worst <= LOGIT_TOL, f"{what}: decode logits within {LOGIT_TOL} "
+            f"of the uncached prefill's (max {worst})")
+    return {"max_abs_err": worst, "mean_abs_err": total / max(steps, 1),
+            "steps": steps, "steps_within_margin": near}
+
+
+def phase_serve_lm(torch, repro_torch, kernels, snap_path, text_path,
+                   report):
+    """Walk-LM serving at phi4-mini-3.8b's full width on the card (phase
+    3f).  Returns the launch counts of the text graph's first request."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache import SourceCache
+    from repro_torch.data import prng
+    from repro_torch.data.walks import random_walks
+    from repro_torch.models import init_params
+    from repro_torch.serve.runtime import ServeRuntime
+    from repro_torch.serve.step import make_decode_step
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"arch": SERVE_ARCH, "params": cfg.param_count()}
+
+    # 1. the model: bf16 matrices and embedding, f32 norms, drawn on the card
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    require(sum(p.numel() for p in model.parameters())
+            == cfg.param_count() + cfg.d_model,       # + the final norm
+            "serve_lm: the model has phi4-mini's parameters")
+    require(all(p.is_cuda for p in model.parameters())
+            and model.embed.dtype == torch.bfloat16,
+            "serve_lm: bf16 weights on the card")
+    row["weight_bytes"] = weight_bytes
+
+    # 2. argmax takes the first of tied maxima at the served vocab size
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.randn((SERVE_BATCH, cfg.vocab_size), generator=g,
+                         device=dev).to(torch.bfloat16)
+    pairs = torch.stack([torch.randperm(cfg.vocab_size, generator=g,
+                                        device=dev)[:2].sort().values
+                         for _ in range(SERVE_BATCH)])
+    logits.scatter_(1, pairs, 9.0)
+    require(torch.equal(torch.argmax(logits, dim=-1), pairs[:, 0]),
+            "serve_lm: argmax returns the first of tied maxima")
+    del logits
+
+    # 3. 32 requests alternating between the raw snapshot and the text; the
+    # text's first request loads the graph cold, its launches counted
+    files = [snap_path, text_path]
+    rt = ServeRuntime(cfg, model, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                      cache=SourceCache(capacity=4), prompt_len=SERVE_PROMPT,
+                      seed=SEED)
+    rec, calls = record_tick_logits(rt.engine, set(range(SERVE_CHECKED)))
+    t0 = time.perf_counter()
+    reqs = [rt.submit(files[0], max_new=SERVE_NEW)]
+    row["cold_snapshot_request_s"] = time.perf_counter() - t0
+    first_text, row["cold_text_request_s"], lc = counted(
+        torch, kernels, lambda: rt.submit(files[1], max_new=SERVE_NEW))
+    need(lc, LOAD_KERNELS, "serve_lm: the text graph's first request")
+    reqs.append(first_text)
+    for i in range(2, SERVE_REQUESTS):
+        reqs.append(rt.submit(files[i % 2], max_new=SERVE_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = rt.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    require(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
+            f"serve_lm: every request completes with {SERVE_NEW} tokens")
+    st = rt.stats()
+    row.update(drain_s=drain_s, ticks=ticks, tokens=tokens,
+               decode_calls=calls[0], tokens_per_s=tokens / drain_s,
+               runtime_tokens_per_s=st["tokens_per_s"],
+               occupancy=st["occupancy"],
+               cache_misses=st["cache"]["misses"])
+
+    # 4. each prompt is the port's random walk on the card for (seed, rid),
+    # and every step of the walk is an edge or a dead-end self-loop
+    key = prng.key(SEED, device=dev)
+    for fi, path in enumerate(files):
+        csr = rt.cache.get(path).csr()
+        walks = random_walks(csr.offsets, csr.targets, key,
+                             num_walks=SERVE_REQUESTS, length=SERVE_PROMPT,
+                             num_vertices=csr.num_vertices)
+        mine = [r for r in reqs if r.rid % 2 == fi]
+        rows = walks[[r.rid for r in mine]]
+        want = (rows % cfg.vocab_size).cpu().numpy()
+        require(all(np.array_equal(r.prompt, w) for r, w in zip(mine, want)),
+                f"serve_lm: prompts are the walks on {os.path.basename(path)}")
+        require(walk_steps_valid(torch, rows, csr.offsets, csr.targets),
+                f"serve_lm: every prompt step is an edge of "
+                f"{os.path.basename(path)} or a dead-end self-loop")
+        del csr, walks
+
+    # 5. cached decode against the uncached prefill, with the bf16 reduced-
+    # precision reduction of cuBLAS on (the default) and off
+    checked = [r for r in reqs if r.rid < SERVE_CHECKED]
+    flags = {"allow_bf16_reduced_precision_reduction": torch.backends.cuda
+             .matmul.allow_bf16_reduced_precision_reduction}
+    row["cached_decode"] = {"tol": LOGIT_TOL, "default": cached_decode_check(
+        torch, model, cfg, checked, rec, "serve_lm cached decode")}
+    row["cached_decode"]["default"].update(flags)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        off = ServeRuntime(cfg, model, batch=SERVE_BATCH,
+                           max_seq=SERVE_MAX_SEQ, cache=rt.cache,
+                           prompt_len=SERVE_PROMPT, seed=SEED)
+        rec_off, _ = record_tick_logits(off.engine, set(range(SERVE_CHECKED)))
+        again = [off.submit(files[r.rid % 2], max_new=SERVE_NEW, rid=r.rid)
+                 for r in checked]
+        off.drain()
+        res = cached_decode_check(torch, model, cfg, again, rec_off,
+                                  "serve_lm cached decode, reduction off")
+        res["tokens_equal_to_default"] = sum(
+            a == b for x, y in zip(again, checked)
+            for a, b in zip(x.out, y.out))
+        row["cached_decode"]["reduced_precision_reduction_off"] = res
+        del off, rec_off
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flags["allow_bf16_reduced_precision_reduction"]
+    del rec
+    say(json.dumps({"serve_lm_cached_decode": row["cached_decode"]}))
+
+    # 6. one decode step at batch 8, timed with CUDA events call by call
+    eng = rt.engine
+    decode = make_decode_step(cfg, SERVE_MAX_SEQ)
+    step_batch = {"token": torch.arange(SERVE_BATCH, dtype=torch.int32,
+                                        device=dev),
+                  "pos": torch.full((SERVE_BATCH,), SERVE_MAX_SEQ // 2,
+                                    dtype=torch.int32, device=dev)}
+
+    def step():
+        decode(model, eng.caches, step_batch)
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(30):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    mean = sum(times) / len(times)
+    row["decode_step_ms"] = {
+        "mean": mean, "min": times[0], "p50": times[len(times) // 2],
+        "max": times[-1],
+        "std": (sum((t - mean) ** 2 for t in times) / len(times)) ** 0.5,
+        "calls": len(times)}
+    kv_bytes = sum(c["k"].numel() * c["k"].element_size() * 2
+                   for c in eng.caches)
+    row["decode_step_bound_ms"] = bound_ms(weight_bytes + kv_bytes)
+    row["kv_cache_bytes"] = kv_bytes
+
+    # 7. the profiler: launches and device time per decode step ...
+    with traced(torch) as prof:
+        for _ in range(5):
+            step()
+    launches, records = card_records(prof)
+    kernel_launches = [e for e in launches if "LaunchKernel" in e.name]
+    kept = [records[e.id] for e in launches if e.id in records]
+    by_kernel = {}
+    for r in kept:
+        n, us = by_kernel.get(r.name, (0, 0.0))
+        by_kernel[r.name] = (n + 1, us + r.time_range.end - r.time_range.start)
+    row["profile_step"] = {
+        "launches_per_step": len(launches) / 5,
+        "kernel_launches_per_step": len(kernel_launches) / 5,
+        "device_ms_per_step": sum(r.time_range.end - r.time_range.start
+                                  for r in kept) / 5 / 1e3,
+        "records_lost": len(launches) - len(kept),
+        "top": [{"name": name[:70], "calls_per_step": n / 5,
+                 "device_ms_per_step": us / 5 / 1e3}
+                for name, (n, us) in sorted(by_kernel.items(),
+                                            key=lambda kv: -kv[1][1])[:10]]}
+    # ... and the device's busy share over a traced drain of 2 requests
+    tr = ServeRuntime(cfg, model, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                      cache=rt.cache, prompt_len=SERVE_PROMPT, seed=SEED + 1)
+    for i in range(2):
+        tr.submit(files[i % 2], max_new=8)
+    with traced(torch) as prof:
+        t0 = time.perf_counter()
+        tr.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, records = card_records(prof)
+    spans = [(r.time_range.start, r.time_range.end)
+             for r in records.values()]
+    busy = union_us(spans) / 1e6
+    row["traced_drain"] = {"requests": 2, "max_new": 8, "wall_s": wall,
+                           "device_busy_s": busy,
+                           "device_busy_share": busy / wall,
+                           "launches": len(launches),
+                           "records_lost": sum(e.id not in records
+                                               for e in launches)}
+    row["device_busy_share_estimate"] = (
+        row["profile_step"]["device_ms_per_step"] * calls[0] / 1e3 / drain_s)
+    del tr, prof, records, launches, kept
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rt.close()
+    del rt, eng, model
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    report["serve_lm"] = row
+    say(json.dumps({"serve_lm": row}))
+    say("phase 3f: walk-LM serving at phi4-mini-3.8b's full width checks out "
+        "on the card")
+    return {"serve_lm: the text graph's first request": lc}
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -2092,6 +2408,12 @@ def main() -> int:
     # in: the gzip scale-18 one.
     swap_path = os.path.join(DATA, "snapshots", "rmat18.gvel")
     repro_torch.open_graph(p18z).save(swap_path)
+    # phase 3f serves 3c's raw snapshot after 3d has swapped it out: a
+    # second link keeps its bytes
+    served_snap = os.path.join(DATA, "snapshots", "rmat22.served.gvel")
+    if os.path.exists(served_snap):
+        os.remove(served_snap)
+    os.link(snap_paths[""], served_snap)
     by_path.update(phase_serving(
         torch, repro_torch, kernels, p22, oracle22, snap_paths,
         (swap_path, csr_oracle(s18z, d18z, None,
@@ -2102,6 +2424,9 @@ def main() -> int:
     by_path.update(phase_sharded(torch, repro_torch, kernels, p22, oracle22,
                                  report))
     del oracle22
+    by_path.update(phase_serve_lm(torch, repro_torch, kernels, served_snap,
+                                  p22, report))
+    os.remove(served_snap)
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

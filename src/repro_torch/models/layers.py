@@ -1,0 +1,89 @@
+"""Shared neural building blocks: norms, RoPE, embeddings, masks and the
+initializer; the port of ``repro/models/layers.py``.
+
+The dtype sequence is the reference's, step for step: activations are
+bf16; ``rms_norm`` and RoPE work in f32 and cast back; masks are additive
+f32 (``NEG_INF``).  Plain tensor code: the reference reaches no Pallas
+kernel here.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+NEG_INF = -1e9
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 accumulation and a ``1 + scale`` gain, cast back to
+    the input's dtype."""
+    xf = x.to(F32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)``, each ``(B, S, 1, hd/2)`` f32, for ``positions``
+    ``(B, S)``: computed once per forward and shared by its layers."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    angles = positions[..., None].to(F32) * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: ``(B, S, H, hd)``; ``tables``: ``(cos, sin)`` from
+    :func:`rope_tables` for its positions.  Rotates split halves in f32 and
+    casts back."""
+    cos, sin = tables
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def param(shape: Sequence[int], device=None, dtype=BF16) -> torch.nn.Parameter:
+    """An uninitialised serving weight (no gradient, bf16 unless told):
+    ``init_params`` draws it, ``params_from_jax`` copies it in
+    (``models/transformer.py``).  The reference keeps f32 params and casts
+    each matrix to bf16 at every use; holding it in bf16 once is the
+    same."""
+    return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                          device=device), requires_grad=False)
+
+
+def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``(V, D)`` table -> ``(B, S, D)`` bf16 activations."""
+    return embedding[tokens].to(BF16)
+
+
+def dense_init(generator: torch.Generator, shape: Sequence[int],
+               scale: float) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in f32 on the generator's device (the
+    reference's initializer: ``scale`` is ``1 / sqrt(fan_in)`` but for the
+    embedding)."""
+    w = torch.randn(tuple(shape), generator=generator, dtype=F32,
+                    device=generator.device)
+    return w.mul_(scale)
+
+
+def causal_mask(sq: int, sk: int, q_offset: int = 0, window=None,
+                device=None) -> torch.Tensor:
+    """``(sq, sk)`` additive f32 mask; ``q_offset`` = absolute position of
+    ``q[0]``."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.zeros((sq, sk), dtype=F32,
+                       device=device).masked_fill_(~ok, NEG_INF)

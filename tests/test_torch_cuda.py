@@ -1,5 +1,6 @@
 """The port's CUDA kernels held against their plain PyTorch versions, on the
-card.
+card, and the port's products (loads, walks, snapshots, the cache, the
+sharded load, the serving engine and runtime) against their CPU runs.
 
 Every test here is marked ``cuda`` and skips unless a CUDA device of
 capability >= 9.0 is present; the module imports neither jax nor the JAX
@@ -9,6 +10,7 @@ package, so it runs on a machine with only PyTorch:
 
 Integer results and float weights (by bit pattern) are compared bitwise.
 """
+import copy
 import gzip
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 import repro_torch
 import torch_inputs as ti
+import torch_lm
 from repro_torch import kernels
 from repro_torch.core import CSR, parse
 from repro_torch.core.build import csr_np
@@ -784,3 +787,83 @@ def test_tuned_load_equals_the_default_load(cuda_device, weighted_text,
                                   device="cpu").csr()
     _same_csr(tuned, want)
     _same_csr(again, want)
+
+
+# ---- the walk-LM serving path ---------------------------------------------------
+
+def _cpu_and_card_models(cuda_device):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    cfg = reduced_config("phi4-mini-3.8b")
+    cpu = init_params(cfg, 3, device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda_device)
+
+
+def _hold_engines(card, cpu, card_logits, cpu_logits):
+    """Token streams under the margin rule; each step's logits within
+    ``COMPILED_TOL`` while the two requests' histories agree."""
+    torch_lm.assert_streams_agree(card, cpu, cpu_logits)
+    for rid, want in cpu.items():
+        for j, (a, b) in enumerate(zip(card_logits[rid], cpu_logits[rid])):
+            np.testing.assert_allclose(a, b, rtol=torch_lm.COMPILED_TOL,
+                                       atol=torch_lm.COMPILED_TOL)
+            if card[rid][j] != want[j]:
+                break
+
+
+def test_serve_engine_on_the_card_matches_the_cpu(cuda_device):
+    """The reduced phi4-mini engine on the card against the port's CPU run
+    of the same weights, with the CPU parity test's tolerance and margin
+    rule (tests/torch_lm.py)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, cpu_model, card_model = _cpu_and_card_models(cuda_device)
+    rng = np.random.default_rng(11)
+    specs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(2, 10)))
+              .astype(np.int32), int(rng.integers(1, 10))) for _ in range(11)]
+    engines = [ServeEngine(cfg, cpu_model, batch=3, max_seq=48, device="cpu"),
+               ServeEngine(cfg, card_model, batch=3, max_seq=48,
+                           device=cuda_device)]
+    logits = [torch_lm.record_tick_logits(e) for e in engines]
+    for eng in engines:
+        for i, (prompt, new) in enumerate(specs):
+            eng.submit(Request(i, prompt, new))
+        eng.run()
+    cpu, card = ({r.rid: r.out for r in e.completed} for e in engines)
+    assert [r.slot for r in engines[0].completed] == \
+        [r.slot for r in engines[1].completed]
+    _hold_engines(card, cpu, logits[1], logits[0])
+
+
+def test_serve_runtime_on_the_card(cuda_device, weighted_text, tmp_path):
+    """ServeRuntime on the card over a text graph and its snapshot: the
+    text's first request runs the loader's kernels, prompts equal the CPU
+    runtime's bitwise, token streams agree under the margin rule."""
+    from repro_torch.core.cache import SourceCache
+    from repro_torch.serve.runtime import ServeRuntime
+    cfg, cpu_model, card_model = _cpu_and_card_models(cuda_device)
+    snap = str(tmp_path / "g.gvel")
+    repro_torch.open_graph(weighted_text, weighted=True,
+                           device="cpu").save(snap)
+    runs = []
+    for model, device in ((cpu_model, "cpu"), (card_model, cuda_device)):
+        rt = ServeRuntime(cfg, model, batch=3, max_seq=32,
+                          cache=SourceCache(capacity=2), seed=5,
+                          device=device)
+        logits = torch_lm.record_tick_logits(rt.engine)
+        kernels.reset_launches()
+        reqs = [rt.submit(snap, max_new=4)]
+        reqs.append(rt.submit(weighted_text, max_new=5, weighted=True))
+        if torch.device(device).type == "cuda":
+            assert all(kernels.LAUNCHES[k] > 0 for k in LOAD_KERNELS)
+        reqs += [rt.submit((snap, weighted_text)[i % 2], max_new=3,
+                           **({"weighted": True} if i % 2 else {}))
+                 for i in range(4)]
+        rt.drain()
+        assert all(r.done for r in reqs)
+        runs.append((reqs, logits))
+    (cpu, cpu_logits), (card, card_logits) = runs
+    for a, b in zip(card, cpu):
+        assert np.array_equal(a.prompt, b.prompt), a.rid
+    _hold_engines({r.rid: r.out for r in card}, {r.rid: r.out for r in cpu},
+                  card_logits, cpu_logits)
+
