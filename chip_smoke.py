@@ -111,6 +111,29 @@ Phases (any failure exits non-zero):
     step from the profiler, the step's bound (the bf16 weights and the KV
     cache over 3.35 TB/s), the device's busy share over a traced drain,
     the text graph's cold load inside its first request, and peak memory;
+3g. (run last, after 3f) the remaining serving kinds at their published
+    widths, one arch at a time, each freed before the next, bf16 weights
+    drawn on the card from the seed: mixtral-8x22b (MoE, 8 of 56 layers),
+    llama4-maverick-400b-a17b (MoE, 1 of 48 layers), recurrentgemma-2b
+    (RG-LRU), falcon-mamba-7b (Mamba), llama-3.2-vision-11b
+    (cross-attention) and musicgen-large (frame inputs), each depth cut
+    printed under ``reduced`` with its reason.  For each, a
+    ``ServeRuntime(batch=8, max_seq=128, prompt_len=8)``: mixtral serves 16
+    requests of 32 tokens alternating between 3c's raw snapshot and the
+    scale-22 text (the text's first request loads cold, its
+    ``parse_accumulate``, ``degree_histogram`` and ``exclusive_scan``
+    launches counted), the others 8 requests of 16 tokens on the raw
+    snapshot; every request completes and every prompt is the port's walk.
+    Then 2 sequences prefill 8 tokens and decode 24 steps fed their own
+    greedy tokens, outside the engine (whose prefill by decode steps moves
+    a recurrent slot's state), each step's logits against an uncached
+    ``forward_prefill`` of the same prefix within ``LOGIT_TOL`` (MoE at
+    ``capacity_factor = E / top_k``: nothing drops; steps whose prefix a
+    router near a tie sent to another expert on one path are counted and
+    left out; the VLM with random ``image_embeds``, musicgen with random
+    ``frames``).  Then one batch-8 decode step timed as in 3f beside its
+    bound (the weights and caches read once), launches and device ms a step
+    from the profiler, and peak memory;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -145,6 +168,7 @@ Everything is also written to ``build/repro_torch/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import gzip
 import json
 import os
@@ -1669,17 +1693,113 @@ def cached_decode_check(torch, model, cfg, reqs, rec, what):
             "steps": steps, "steps_within_margin": near}
 
 
+def free_card(torch):
+    """Drop a served model's memory: the engine and the wrapped decode step
+    that records its ticks refer to each other, so the model goes only
+    when the cycle collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_prompts(torch, rt, reqs, path_of, vocab, what):
+    """Each request's prompt is the port's random walk on the card for
+    ``(seed, rid)`` over its graph (``path_of[rid]``), mod ``vocab``, and
+    every step of the walk is an edge or a dead-end self-loop."""
+    from repro_torch.data import prng
+    from repro_torch.data.walks import random_walks
+    key = prng.key(SEED, device=torch.device("cuda", 0))
+    num = max(r.rid for r in reqs) + 1
+    for path in sorted(set(path_of.values())):
+        csr = rt.cache.get(path).csr()
+        walks = random_walks(csr.offsets, csr.targets, key, num_walks=num,
+                             length=len(reqs[0].prompt),
+                             num_vertices=csr.num_vertices)
+        mine = [r for r in reqs if path_of[r.rid] == path]
+        rows = walks[[r.rid for r in mine]]
+        want = (rows % vocab).cpu().numpy()
+        require(all(np.array_equal(r.prompt, w) for r, w in zip(mine, want)),
+                f"{what}: prompts are the walks on {os.path.basename(path)}")
+        require(walk_steps_valid(torch, rows, csr.offsets, csr.targets),
+                f"{what}: every prompt step is an edge of "
+                f"{os.path.basename(path)} or a dead-end self-loop")
+        del csr, walks
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in c.values())
+
+
+def decode_step(torch, model, cfg, caches, max_seq, weight_bytes):
+    """One batch-8 decode step over ``caches``: CUDA-event times call by
+    call (mean, p50, min, max, std of 30 after 5), its bound (the bf16
+    weights and every cache tensor read once over 3.35 TB/s), and from the
+    profiler the launches and device ms a step and the kernels that take
+    the most device time."""
+    from repro_torch.serve.step import make_decode_step
+    dev = torch.device("cuda", 0)
+    decode = make_decode_step(cfg, max_seq)
+    batch = caches[0][next(iter(caches[0]))].shape[0]
+    step_batch = {"token": torch.arange(batch, dtype=torch.int32,
+                                        device=dev),
+                  "pos": torch.full((batch,), max_seq // 2,
+                                    dtype=torch.int32, device=dev)}
+
+    def step():
+        decode(model, caches, step_batch)
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(30):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    mean = sum(times) / len(times)
+    row = {"decode_step_ms": {
+        "mean": mean, "min": times[0], "p50": times[len(times) // 2],
+        "max": times[-1],
+        "std": (sum((t - mean) ** 2 for t in times) / len(times)) ** 0.5,
+        "calls": len(times)}}
+    row["cache_bytes"] = cache_bytes(caches)
+    row["decode_step_bound_ms"] = bound_ms(weight_bytes + row["cache_bytes"])
+
+    with traced(torch) as prof:
+        for _ in range(5):
+            step()
+    launches, records = card_records(prof)
+    kernel_launches = [e for e in launches if "LaunchKernel" in e.name]
+    kept = [records[e.id] for e in launches if e.id in records]
+    by_kernel = {}
+    for r in kept:
+        n, us = by_kernel.get(r.name, (0, 0.0))
+        by_kernel[r.name] = (n + 1, us + r.time_range.end - r.time_range.start)
+    row["profile_step"] = {
+        "launches_per_step": len(launches) / 5,
+        "kernel_launches_per_step": len(kernel_launches) / 5,
+        "device_ms_per_step": sum(r.time_range.end - r.time_range.start
+                                  for r in kept) / 5 / 1e3,
+        "records_lost": len(launches) - len(kept),
+        "top": [{"name": name[:70], "calls_per_step": n / 5,
+                 "device_ms_per_step": us / 5 / 1e3}
+                for name, (n, us) in sorted(by_kernel.items(),
+                                            key=lambda kv: -kv[1][1])[:10]]}
+    return row
+
+
 def phase_serve_lm(torch, repro_torch, kernels, snap_path, text_path,
                    report):
     """Walk-LM serving at phi4-mini-3.8b's full width on the card (phase
     3f).  Returns the launch counts of the text graph's first request."""
     from repro_torch.configs import get_config
     from repro_torch.core.cache import SourceCache
-    from repro_torch.data import prng
-    from repro_torch.data.walks import random_walks
     from repro_torch.models import init_params
     from repro_torch.serve.runtime import ServeRuntime
-    from repro_torch.serve.step import make_decode_step
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     cfg = get_config(SERVE_ARCH)
@@ -1747,21 +1867,8 @@ def phase_serve_lm(torch, repro_torch, kernels, snap_path, text_path,
 
     # 4. each prompt is the port's random walk on the card for (seed, rid),
     # and every step of the walk is an edge or a dead-end self-loop
-    key = prng.key(SEED, device=dev)
-    for fi, path in enumerate(files):
-        csr = rt.cache.get(path).csr()
-        walks = random_walks(csr.offsets, csr.targets, key,
-                             num_walks=SERVE_REQUESTS, length=SERVE_PROMPT,
-                             num_vertices=csr.num_vertices)
-        mine = [r for r in reqs if r.rid % 2 == fi]
-        rows = walks[[r.rid for r in mine]]
-        want = (rows % cfg.vocab_size).cpu().numpy()
-        require(all(np.array_equal(r.prompt, w) for r, w in zip(mine, want)),
-                f"serve_lm: prompts are the walks on {os.path.basename(path)}")
-        require(walk_steps_valid(torch, rows, csr.offsets, csr.targets),
-                f"serve_lm: every prompt step is an edge of "
-                f"{os.path.basename(path)} or a dead-end self-loop")
-        del csr, walks
+    check_prompts(torch, rt, reqs, {r.rid: files[r.rid % 2] for r in reqs},
+                  cfg.vocab_size, "serve_lm")
 
     # 5. cached decode against the uncached prefill, with the bf16 reduced-
     # precision reduction of cuBLAS on (the default) and off
@@ -1793,61 +1900,12 @@ def phase_serve_lm(torch, repro_torch, kernels, snap_path, text_path,
     del rec
     say(json.dumps({"serve_lm_cached_decode": row["cached_decode"]}))
 
-    # 6. one decode step at batch 8, timed with CUDA events call by call
+    # 6. one decode step at batch 8, timed with CUDA events call by call,
+    # and 7. the profiler: launches and device time per decode step ...
     eng = rt.engine
-    decode = make_decode_step(cfg, SERVE_MAX_SEQ)
-    step_batch = {"token": torch.arange(SERVE_BATCH, dtype=torch.int32,
-                                        device=dev),
-                  "pos": torch.full((SERVE_BATCH,), SERVE_MAX_SEQ // 2,
-                                    dtype=torch.int32, device=dev)}
-
-    def step():
-        decode(model, eng.caches, step_batch)
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(30):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    mean = sum(times) / len(times)
-    row["decode_step_ms"] = {
-        "mean": mean, "min": times[0], "p50": times[len(times) // 2],
-        "max": times[-1],
-        "std": (sum((t - mean) ** 2 for t in times) / len(times)) ** 0.5,
-        "calls": len(times)}
-    kv_bytes = sum(c["k"].numel() * c["k"].element_size() * 2
-                   for c in eng.caches)
-    row["decode_step_bound_ms"] = bound_ms(weight_bytes + kv_bytes)
-    row["kv_cache_bytes"] = kv_bytes
-
-    # 7. the profiler: launches and device time per decode step ...
-    with traced(torch) as prof:
-        for _ in range(5):
-            step()
-    launches, records = card_records(prof)
-    kernel_launches = [e for e in launches if "LaunchKernel" in e.name]
-    kept = [records[e.id] for e in launches if e.id in records]
-    by_kernel = {}
-    for r in kept:
-        n, us = by_kernel.get(r.name, (0, 0.0))
-        by_kernel[r.name] = (n + 1, us + r.time_range.end - r.time_range.start)
-    row["profile_step"] = {
-        "launches_per_step": len(launches) / 5,
-        "kernel_launches_per_step": len(kernel_launches) / 5,
-        "device_ms_per_step": sum(r.time_range.end - r.time_range.start
-                                  for r in kept) / 5 / 1e3,
-        "records_lost": len(launches) - len(kept),
-        "top": [{"name": name[:70], "calls_per_step": n / 5,
-                 "device_ms_per_step": us / 5 / 1e3}
-                for name, (n, us) in sorted(by_kernel.items(),
-                                            key=lambda kv: -kv[1][1])[:10]]}
+    row.update(decode_step(torch, model, cfg, eng.caches, SERVE_MAX_SEQ,
+                           weight_bytes))
+    row["kv_cache_bytes"] = row.pop("cache_bytes")
     # ... and the device's busy share over a traced drain of 2 requests
     tr = ServeRuntime(cfg, model, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
                       cache=rt.cache, prompt_len=SERVE_PROMPT, seed=SEED + 1)
@@ -1870,17 +1928,289 @@ def phase_serve_lm(torch, repro_torch, kernels, snap_path, text_path,
                                                for e in launches)}
     row["device_busy_share_estimate"] = (
         row["profile_step"]["device_ms_per_step"] * calls[0] / 1e3 / drain_s)
-    del tr, prof, records, launches, kept
+    del tr, prof, records, launches
     row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     rt.close()
     del rt, eng, model
-    torch.cuda.empty_cache()
+    free_card(torch)
     row["phase_s"] = time.perf_counter() - t_phase
     report["serve_lm"] = row
     say(json.dumps({"serve_lm": row}))
     say("phase 3f: walk-LM serving at phi4-mini-3.8b's full width checks out "
         "on the card")
     return {"serve_lm: the text graph's first request": lc}
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the remaining serving kinds at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run, why) -- every width is the published config's; depth
+# is cut only where one card cannot hold the model
+KIND_ARCHS = (
+    ("mixtral-8x22b", 8,
+     "56 layers are 282 GB of bf16 weights and one card holds 80 GB; 8 "
+     "layers are 40.5 GB"),
+    ("llama4-maverick-400b-a17b", 1,
+     "one layer's 128 experts are 32.2 GB of bf16 weights; two layers and "
+     "the 2.1 GB embedding would leave under 14 GB of the card for the "
+     "embedding's f32 draw, the caches and the graphs"),
+    ("recurrentgemma-2b", None, None),
+    ("falcon-mamba-7b", None, None),
+    ("llama-3.2-vision-11b", None, None),
+    ("musicgen-large", None, None),
+)
+KIND_HEADLINE = "mixtral-8x22b"     # 16 requests of 32 tokens, text + .gvel
+KIND_REQUESTS, KIND_NEW = 8, 16     # the others, on the raw snapshot
+CHECK_SEQS, CHECK_STEPS = 2, 24     # cached decode against the prefill
+
+
+def route_recorder(torch, moe_mod):
+    """Wrap ``moe.route`` while the context is open: each call's expert
+    choices per token (``(tokens, top_k)``, sorted) and the router's margin
+    at the last choice (the top_k-th probability less the next one)."""
+    calls = []
+    route = moe_mod.route
+
+    def recorded(p, xg, cfg):
+        out = route(p, xg, cfg)
+        k = cfg.moe.top_k
+        probs = torch.softmax((xg @ p.router).float(), dim=-1)
+        top = probs.topk(k + 1, dim=-1).values
+        calls.append((torch.stack(out[0], dim=-1).reshape(-1, k).sort(-1)
+                      .values, (top[..., k - 1] - top[..., k]).reshape(-1)))
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        moe_mod.route = recorded
+        try:
+            yield calls
+        finally:
+            moe_mod.route = route
+    return recording
+
+
+def kind_decode_check(torch, model, cfg, prompts, extra, what):
+    """``CHECK_SEQS`` sequences: ``forward_prefill`` of the prompts, then
+    ``CHECK_STEPS`` decode steps fed the cached path's greedy tokens; each
+    step's logits against ``forward_prefill`` over the prompt and the
+    tokens so far, with no cache.  ``prompts``: ``(B, 8)`` token ids, or
+    ``(B, 8, D)`` frames of an embed-stub arch; ``extra``: the prefill's
+    other inputs (``image_embeds``).
+
+    MoE: every token's expert choices on both paths are recorded per
+    layer.  A router within rounding of a tie may choose another expert
+    when the two paths' products round differently (other GEMM shapes), and
+    the token's output then moves by O(1); a step whose prefix was routed
+    otherwise anywhere is counted, with the router's margin there, and
+    left out of the tolerance.  Every other step is held at ``LOGIT_TOL``,
+    and its greedy token must equal the prefill's wherever the prefill's
+    top-2 margin exceeds it."""
+    from repro_torch.models import forward_decode, forward_prefill, moe
+    dev = torch.device("cuda", 0)
+    b, n0 = prompts.shape[:2]
+    frames = prompts.dim() == 3
+    recording = route_recorder(torch, moe)
+    routed = cfg.moe is not None
+
+    def prefill_input(toks):
+        if not frames:
+            return {"tokens": torch.cat([prompts] + toks, dim=1), **extra}
+        steps = [model.embed[t] for t in toks]
+        return {"frames": torch.cat([prompts.to(torch.bfloat16)] + steps,
+                                    dim=1), **extra}
+
+    worst, total, steps, near, rerouted, margins = 0.0, 0.0, 0, 0, 0, []
+    with torch.inference_mode(), recording() as calls:
+        lg, caches = forward_prefill(model, prefill_input([]), cfg,
+                                     SERVE_MAX_SEQ)
+        table = [c.view(b, n0, -1) for c, _ in calls]      # layer -> choices
+        del calls[:]
+        toks = []
+        for j in range(CHECK_STEPS):
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            toks.append(tok[:, None])
+            lg, caches = forward_decode(
+                model, {"token": tok, "pos": torch.full(
+                    (b,), n0 + j, dtype=torch.int32, device=dev)},
+                caches, cfg, SERVE_MAX_SEQ)
+            if routed:
+                table = [torch.cat([t, c.view(b, 1, -1)], dim=1)
+                         for t, (c, _) in zip(table, calls)]
+            del calls[:]
+            want, _ = forward_prefill(model, prefill_input(toks), cfg,
+                                      SERVE_MAX_SEQ)
+            if routed:
+                moved = [(c.view(b, n0 + j + 1, -1) != t).any(-1)
+                         for t, (c, _) in zip(table, calls)]
+                if any(bool(m.any()) for m in moved):
+                    # the smallest margin among the tokens routed otherwise:
+                    # the first flip's; later layers follow from it
+                    rerouted += 1
+                    margins.append(min(float(mg.view(b, -1)[m].min())
+                                       for m, (_, mg) in zip(moved, calls)
+                                       if bool(m.any())))
+                    del calls[:]
+                    continue
+            del calls[:]
+            nxt = torch.argmax(lg, dim=-1)
+            for s in range(b):
+                got_s, want_s = lg[s].float(), want[s].float()
+                err = (got_s - want_s).abs()
+                worst = max(worst, float(err.max()))
+                total += float(err.mean())
+                top2 = torch.topk(want_s, 2).values
+                if float(top2[0] - top2[1]) > LOGIT_TOL:
+                    require(int(torch.argmax(want_s)) == int(nxt[s]),
+                            f"{what}: sequence {s} step {j}: greedy token "
+                            f"agrees with the uncached prefill")
+                else:
+                    near += 1
+                steps += 1
+    require(steps > 0, f"{what}: some step compared")
+    require(worst <= LOGIT_TOL, f"{what}: decode logits within {LOGIT_TOL} "
+            f"of the uncached prefill's (max {worst})")
+    return {"tol": LOGIT_TOL, "max_abs_err": worst,
+            "mean_abs_err": total / steps, "steps": steps,
+            "steps_within_margin": near, "rerouted_steps": rerouted,
+            "rerouted_router_margin_max": max(margins) if margins else None}
+
+
+def serve_kind(torch, kernels, arch, layers, why, files, report):
+    """One arch of phase 3g: the model at its published widths (``layers``
+    cut, ``why``), served, its cached decode checked, a decode step timed.
+    Returns the launch counts of the text graph's first request
+    (the headline arch) or None."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache import SourceCache
+    from repro_torch.models import init_params
+    from repro_torch.serve.runtime import ServeRuntime
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    row = {"arch": arch, "layers": cfg.num_layers, "reduced": None}
+    if layers is not None:
+        row["reduced"] = {"num_layers": [cfg.num_layers, layers],
+                          "reason": why}
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        row["layers"] = layers
+    row["widths"] = {k: getattr(cfg, k) for k in (
+        "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+        "vocab_size", "lru_width", "num_image_tokens")}
+    if cfg.moe:
+        row["widths"]["moe"] = dataclasses.asdict(cfg.moe)
+    if cfg.ssm:
+        row["widths"]["ssm"] = dataclasses.asdict(cfg.ssm)
+    torch.cuda.synchronize()
+    row["allocated_before_bytes"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the model: bf16 matrices, f32 norms (and lam, A_log, D, dt_bias),
+    # drawn on the card
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    row["params"] = sum(p.numel() for p in model.parameters())
+    row["param_count"] = cfg.param_count()
+    row["weight_bytes"] = weight_bytes = sum(
+        p.numel() * p.element_size() for p in model.parameters())
+    require(all(p.is_cuda for p in model.parameters())
+            and model.embed.dtype == torch.bfloat16,
+            f"{arch}: weights on the card, bf16 embedding")
+
+    # serving through ServeRuntime: the headline alternates the raw
+    # snapshot and the text, whose first request loads cold and counts the
+    # loader's launches; the others serve the raw snapshot
+    headline = arch == KIND_HEADLINE
+    n_req, new = (SERVE_REQUESTS // 2, SERVE_NEW) if headline else \
+        (KIND_REQUESTS, KIND_NEW)
+    rt = ServeRuntime(cfg, model, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                      cache=SourceCache(capacity=4), prompt_len=SERVE_PROMPT,
+                      seed=SEED)
+    _, calls = record_tick_logits(rt.engine, set())
+    reqs, path_of, lc = [], {}, None
+    for i in range(n_req):
+        path = files[i % 2] if headline else files[0]
+        if headline and i == 1:
+            req, row["cold_text_request_s"], lc = counted(
+                torch, kernels, lambda: rt.submit(path, max_new=new))
+            need(lc, LOAD_KERNELS, f"{arch}: the text graph's first request")
+        else:
+            req = rt.submit(path, max_new=new)
+        reqs.append(req)
+        path_of[req.rid] = path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = rt.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    require(all(r.done and len(r.out) == new for r in reqs),
+            f"{arch}: every request completes with {new} tokens")
+    check_prompts(torch, rt, reqs, path_of, cfg.vocab_size, arch)
+    tokens = sum(len(r.out) for r in reqs)
+    row["serve"] = {"requests": n_req, "max_new": new, "tokens": tokens,
+                    "drain_s": drain_s, "tokens_per_s": tokens / drain_s,
+                    "decode_calls": calls[0], "ticks": ticks,
+                    "files": sorted({os.path.basename(p)
+                                     for p in path_of.values()})}
+
+    # cached decode against the uncached prefill, outside the engine (its
+    # prefill by decode steps moves a recurrent slot's state); MoE at a
+    # capacity that drops nothing, so that no token depends on another
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ccfg = cfg
+    if cfg.moe:
+        ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    if cfg.embed_stub:
+        prompts = torch.randn((CHECK_SEQS, SERVE_PROMPT, cfg.d_model),
+                              generator=g, device=dev)
+    else:
+        prompts = torch.from_numpy(np.stack(
+            [r.prompt for r in reqs[:CHECK_SEQS]])).to(dev)
+    extra = {}
+    if "xattn" in cfg.layer_pattern:
+        extra["image_embeds"] = torch.randn(
+            (CHECK_SEQS, cfg.num_image_tokens, cfg.d_model), generator=g,
+            device=dev).to(torch.bfloat16)
+    row["cached_decode"] = kind_decode_check(torch, model, ccfg, prompts,
+                                             extra, f"{arch} cached decode")
+    if cfg.moe:
+        row["cached_decode"]["capacity_factor"] = ccfg.moe.capacity_factor
+    del prompts, extra
+
+    # one batch-8 decode step over the drained engine's caches
+    row.update(decode_step(torch, model, cfg, rt.engine.caches,
+                           SERVE_MAX_SEQ, weight_bytes))
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rt.close()
+    del rt, model
+    free_card(torch)
+    row["arch_s"] = time.perf_counter() - t_arch
+    report.append(row)
+    say(json.dumps({"serve_kind": row}))
+    return lc
+
+
+def phase_serve_kinds(torch, kernels, snap_path, text_path, report):
+    """The remaining serving kinds at full width on the card (phase 3g):
+    MoE, RG-LRU, Mamba, cross-attention and frame inputs, one arch at a
+    time, each freed before the next.  Returns the launch counts of the
+    headline's text request."""
+    t_phase = time.perf_counter()
+    rows, lc = [], None
+    for arch, layers, why in KIND_ARCHS:
+        got = serve_kind(torch, kernels, arch, layers, why,
+                         [snap_path, text_path], rows)
+        lc = got if got is not None else lc
+    report["serve_kinds"] = {"archs": rows,
+                             "phase_s": time.perf_counter() - t_phase}
+    say("phase 3g: MoE, RG-LRU, Mamba, cross-attention and frame inputs "
+        "serve at full width on the card")
+    return {f"serve_kinds: {KIND_HEADLINE}'s text request": lc}
 
 
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
@@ -2426,6 +2756,8 @@ def main() -> int:
     del oracle22
     by_path.update(phase_serve_lm(torch, repro_torch, kernels, served_snap,
                                   p22, report))
+    by_path.update(phase_serve_kinds(torch, kernels, served_snap, p22,
+                                     report))
     os.remove(served_snap)
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)

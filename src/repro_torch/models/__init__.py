@@ -1,9 +1,9 @@
 """The model zoo's serving path in PyTorch: the port of ``repro/models``.
 
-Dense ``"attn"`` stacks (phi4-mini, starcoder2, nemotron-4, granite and
-the attention layers of the others) prefill and decode; MoE, the
-recurrent kinds and the VLM/audio inputs raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Every layer kind of the 10 archs prefills and decodes: dense and MoE
+``"attn"`` layers, the recurrent ``"rglru"`` and ``"mamba"`` kinds, the
+VLM's ``"xattn"`` cross-attention over image embeddings, and frame inputs
+for an ``embed_stub`` (audio) arch.
 """
 from .config import ModelConfig, MoEConfig, SSMConfig
 from .transformer import (Transformer, forward_decode, forward_prefill,

@@ -12,9 +12,8 @@ Sliding-window archs keep only ``window`` KV entries in the decode cache,
 a ring written at ``pos % window`` (floor modulo, ``torch.remainder``);
 position-aware masking keeps the softmax right for both layouts.  The
 decode step writes its cache rows in place and returns the same dict.
-
-``cross_attention`` (the VLM's ``xattn`` layers) is not ported yet
-(ROADMAP Queue 1 item 5, VLM/audio).
+``cross_attention`` (the VLM's ``xattn`` layers) attends over image
+embeddings with no RoPE and no mask.
 """
 from __future__ import annotations
 
@@ -171,3 +170,26 @@ def attention_decode(p, x, pos, cache, spec: CacheSpec, cfg, tables):
     probs = torch.softmax(scores + mask, dim=-1).to(BF16)
     out = _gqa_out(probs, v, q.shape[2])
     return project_out(out, p.wo), cache
+
+
+# ---- cross attention (VLM) ---------------------------------------------------
+
+def image_kv(p, kv_embeds: torch.Tensor):
+    """The image K/V of an ``xattn`` layer: ``kv_embeds (B, N, D)`` ->
+    ``(B, N, K, hd)`` each, no RoPE (the layer's prefill cache)."""
+    return project_in(kv_embeds, p.wk), project_in(kv_embeds, p.wv)
+
+
+def attend_image(p, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """Queries of ``x (B, S, D)`` (no RoPE) against an image's K/V, with no
+    mask, projected out."""
+    out = full_attention(project_in(x, p.wq), k, v, causal=False)
+    return project_out(out, p.wo)
+
+
+def cross_attention(p, x: torch.Tensor, kv_embeds: torch.Tensor) -> torch.Tensor:
+    """x: ``(B, S, D)`` queries; kv_embeds: ``(B, N, D)`` image tokens (no
+    mask).  ``p``: an :class:`Attention` (the reference's
+    ``init_xattn_params`` is ``init_attn_params``)."""
+    return attend_image(p, x, *image_kv(p, kv_embeds))

@@ -1,16 +1,17 @@
 """Per-layer assembly and the serving modes (prefill and decode); the port
 of ``repro/models/blocks.py``.
 
-A *segment* is a repeated pattern of layer kinds (``("attn",)`` for the
-dense stacks).  The reference scans each segment over stacked params; the
-port holds one :class:`Block` per layer in execution order (segment by
-segment, each pattern repeated ``n`` times), which is the order the scan
-visits them.
+A *segment* is a repeated pattern of layer kinds: ``("attn",)`` for
+homogeneous stacks, ``("rglru", "rglru", "attn")`` for RecurrentGemma,
+``("attn",) * 4 + ("xattn",)`` for the vision model.  The reference scans
+each segment over stacked params; the port holds one :class:`Block` per
+layer in execution order (segment by segment, each pattern repeated ``n``
+times), which is the order the scan visits them.
 
-Only the ``"attn"`` kind with a dense MLP is ported.  ``xattn`` waits for
-the VLM/audio item, ``mamba`` and ``rglru`` for the recurrent kinds, and
-``cfg.moe`` for the MoE item (ROADMAP Queue 1 item 5); each raises
-:class:`NotImplementedError` naming it.
+Each kind's cache is a dict: ``{"k", "v"}`` for ``attn`` (the KV cache,
+written in place by the decode) and ``xattn`` (the image K/V, read only),
+``{"conv", "h"}`` for ``rglru`` and ``{"conv", "ssm"}`` for ``mamba``
+(the decode puts the new state into the same dict).
 """
 from __future__ import annotations
 
@@ -19,23 +20,13 @@ from typing import Dict, List, Tuple
 import torch
 
 from . import attention as attn
+from . import mamba as mb
 from . import mlp as mlpm
+from . import moe as moem
+from . import rglru as rg
 from .layers import BF16, F32, param, rms_norm
 
-# the ROADMAP item (Queue 1 item 5) that ports each branch not yet here
-_LATER = {
-    "xattn": "VLM/audio (xattn, embed_stub)",
-    "embed_stub": "VLM/audio (xattn, embed_stub)",
-    "mamba": "the recurrent kinds (rglru.py, mamba.py)",
-    "rglru": "the recurrent kinds (rglru.py, mamba.py)",
-    "moe": "MoE (models/moe.py)",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP Queue 1 item 5, "
-        f"{_LATER[what]}")
+KINDS = ("attn", "xattn", "mamba", "rglru")
 
 
 def plan_segments(cfg) -> List[Tuple[Tuple[str, ...], int]]:
@@ -54,57 +45,83 @@ def layer_kinds(cfg) -> List[str]:
             for _ in range(n) for kind in pattern]
 
 
-def check_ported(cfg) -> None:
-    """Raise :class:`NotImplementedError` for an arch this slice cannot
-    run."""
-    if cfg.moe is not None:
-        raise not_ported("moe")
-    for kind in layer_kinds(cfg):
-        if kind != "attn":
-            raise not_ported(kind)
-
-
 class Block(torch.nn.Module):
-    """One ``"attn"`` layer: ``norm1``, attention, ``norm2``, dense MLP.
-    Norm scales are f32, the matrices bf16."""
+    """One layer: ``norm1`` and its mixer (``attn``, ``xattn``, ``mamba``
+    or ``rglru``), then, but for ``mamba``, ``norm2`` and the MLP (``moe``
+    in an ``attn`` layer when ``cfg.moe`` is set, else ``mlp``).  The
+    submodules' parameter names are the reference's pytree keys.  Norm
+    scales are f32."""
 
     def __init__(self, kind: str, cfg, *, device=None):
         super().__init__()
-        if kind != "attn":
-            raise not_ported(kind) if kind in _LATER else ValueError(kind)
-        if cfg.moe is not None:
-            raise not_ported("moe")
+        if kind not in KINDS:
+            raise ValueError(kind)
         self.kind = kind
         d = cfg.d_model
         self.norm1 = param((d,), device, F32)
-        self.attn = attn.Attention(cfg, device=device)
+        if kind in ("attn", "xattn"):
+            self.add_module(kind, attn.Attention(cfg, device=device))
+        elif kind == "mamba":
+            self.mamba = mb.Mamba(cfg, device=device)
+        else:
+            self.rglru = rg.RGLRU(cfg, device=device)
+        if kind == "mamba":
+            return
         self.norm2 = param((d,), device, F32)
-        self.mlp = mlpm.MLP(d, cfg.d_ff, cfg.mlp, device=device)
+        if kind == "attn" and cfg.moe is not None:
+            self.moe = moem.MoE(cfg, device=device)
+        else:
+            self.mlp = mlpm.MLP(d, cfg.d_ff, cfg.mlp, device=device)
 
     def init_(self, g: torch.Generator) -> None:
+        for child in self.children():
+            child.init_(g)
         self.norm1.zero_()
-        self.norm2.zero_()
-        self.attn.init_(g)
-        self.mlp.init_(g)
+        if self.kind != "mamba":
+            self.norm2.zero_()
+
+    def ffn(self, x: torch.Tensor, cfg) -> torch.Tensor:
+        """``x`` plus the MLP (or MoE) of ``norm2(x)``."""
+        h2 = rms_norm(x, self.norm2, cfg.norm_eps)
+        if hasattr(self, "moe"):
+            y, _ = moem.moe_apply(self.moe, h2, cfg)
+        else:
+            y = mlpm.mlp_apply(self.mlp, h2, cfg.mlp)
+        return x + y
 
 
 # ---- prefill (returns caches) -------------------------------------------------
 
 def apply_layer_prefill(kind: str, p: Block, x, positions, cfg,
-                        spec: attn.CacheSpec, tables):
-    if kind != "attn":
-        raise not_ported(kind)
+                        spec: attn.CacheSpec, tables, image_embeds=None):
     h = rms_norm(x, p.norm1, cfg.norm_eps)
-    q, k, v = attn._qkv(p.attn, h, tables)
-    if x.shape[1] <= 2048:
-        out = attn.full_attention(q, k, v, window=cfg.window)
+    if kind == "attn":
+        q, k, v = attn._qkv(p.attn, h, tables)
+        if x.shape[1] <= 2048:
+            out = attn.full_attention(q, k, v, window=cfg.window)
+        else:
+            out = attn.chunked_attention(q, k, v, window=cfg.window)
+        x = x + attn.project_out(out, p.attn.wo)
+        cache = _fill_cache(k, v, positions, spec)
+    elif kind == "xattn":
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: an xattn layer's prefill needs "
+                             f"image_embeds")
+        k, v = attn.image_kv(p.xattn, image_embeds)
+        x = x + attn.attend_image(p.xattn, h, k, v)
+        cache = {"k": k, "v": v}
+    elif kind == "mamba":
+        dc = cfg.ssm.d_conv
+        u_raw, z = (h @ p.mamba.in_proj).chunk(2, dim=-1)
+        y, state = mb.mamba_mix(p.mamba, u_raw, z, cfg)
+        return x + y, {"conv": u_raw[:, -(dc - 1):].contiguous(),
+                       "ssm": state}
     else:
-        out = attn.chunked_attention(q, k, v, window=cfg.window)
-    x = x + attn.project_out(out, p.attn.wo)
-    cache = _fill_cache(k, v, positions, spec)
-    h2 = rms_norm(x, p.norm2, cfg.norm_eps)
-    x = x + mlpm.mlp_apply(p.mlp, h2, cfg.mlp)
-    return x, cache
+        u_raw, g = (h @ p.rglru.in_proj).chunk(2, dim=-1)
+        y, state = rg.rglru_mix(p.rglru, u_raw, g, cfg)
+        x = x + y
+        cache = {"conv": u_raw[:, -3:].contiguous(), "h": state}
+    return p.ffn(x, cfg), cache
 
 
 def _fill_cache(k, v, positions, spec: attn.CacheSpec) -> Dict[str, torch.Tensor]:
@@ -128,19 +145,35 @@ def init_layer_cache(kind: str, cfg, spec: attn.CacheSpec, batch: int,
                      device=None) -> Dict[str, torch.Tensor]:
     if kind == "attn":
         return attn.init_cache(cfg, spec, batch, device)
-    raise not_ported(kind) if kind in _LATER else ValueError(kind)
+    if kind == "xattn":
+        shape = (batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=BF16, device=device),
+                "v": torch.zeros(shape, dtype=BF16, device=device)}
+    if kind == "mamba":
+        return mb.init_mamba_cache(cfg, batch, device)
+    if kind == "rglru":
+        return rg.init_rglru_cache(cfg, batch, device)
+    raise ValueError(kind)
 
 
 # ---- decode -------------------------------------------------------------------
 
 def apply_layer_decode(kind: str, p: Block, x, pos, cache, spec, cfg,
                        tables):
-    if kind != "attn":
-        raise not_ported(kind)
+    """One token through one layer; ``cache`` (the layer's dict) is updated
+    in place and returned."""
     h = rms_norm(x, p.norm1, cfg.norm_eps)
-    y, cache = attn.attention_decode(p.attn, h, pos, cache, spec, cfg,
-                                     tables)
-    x = x + y
-    h2 = rms_norm(x, p.norm2, cfg.norm_eps)
-    x = x + mlpm.mlp_apply(p.mlp, h2, cfg.mlp)
-    return x, cache
+    if kind == "attn":
+        y, cache = attn.attention_decode(p.attn, h, pos, cache, spec, cfg,
+                                         tables)
+    elif kind == "xattn":
+        # the image K/V, as the prefill left it (zeros if it never ran)
+        y = attn.attend_image(p.xattn, h, cache["k"], cache["v"])
+    elif kind == "mamba":
+        y, new = mb.mamba_decode(p.mamba, h, cache, cfg)
+        cache.update(new)
+        return x + y, cache
+    else:
+        y, new = rg.rglru_decode(p.rglru, h, cache, cfg)
+        cache.update(new)
+    return p.ffn(x + y, cfg), cache

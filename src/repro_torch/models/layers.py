@@ -51,6 +51,31 @@ def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) + log1p(exp(
+    -|x|))``, the reference's sequence (``F.softplus`` rounds otherwise)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s sequence, ``x * sigmoid(x)``: it matches the
+    reference bitwise on far more f32 inputs than ``F.silu`` (99.6% against
+    77% of a million normal draws on the CPU)."""
+    return x * torch.sigmoid(x)
+
+
+def depthwise_conv(win: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   length: int) -> torch.Tensor:
+    """The causal depthwise conv of the recurrent kinds over ``win`` (``(B,
+    length + taps - 1, W)``): the bf16 products of the taps ``w`` (``(taps,
+    W)``) summed tap by tap in bf16, plus the bias ``b``; the reference's
+    ``sum(...)``."""
+    out = win[:, 0:length] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + win[:, i:i + length] * w[i]
+    return out + b
+
+
 def param(shape: Sequence[int], device=None, dtype=BF16) -> torch.nn.Parameter:
     """An uninitialised serving weight (no gradient, bf16 unless told):
     ``init_params`` draws it, ``params_from_jax`` copies it in

@@ -1,0 +1,137 @@
+"""Mamba-1 (S6) selective-state-space layer; the port of
+``repro/models/mamba.py``.
+
+The prefill runs the reference's chunks (``chunk=256``): each chunk's
+``dA``/``dBu`` (``(B, L, d_inner, d_state)`` f32) are made for that chunk
+alone, and the recurrence is stepped in order in f32 where the reference
+runs an associative scan, so a state differs from the reference's by f32
+rounding only.  Each step reads its output from the state it has just
+made, so no ``(B, L, d_inner, d_state)`` tensor of states is kept.
+Decode is the O(1) step.  ``A_log``, ``D`` and ``dt_bias`` are f32, as the
+reference uses them; the matrices and the conv are bf16.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from .layers import (BF16, F32, dense_init, depthwise_conv, param, silu,
+                     softplus)
+
+
+class Mamba(torch.nn.Module):
+    """``in_proj (d, 2 di)``, ``conv_w (d_conv, di)``, ``conv_b (di,)``,
+    ``x_proj (di, dt_rank + 2 N)``, ``dt_proj (dt_rank, di)``, ``dt_bias
+    (di,)`` f32, ``A_log (di, N)`` f32, ``D (di,)`` f32, ``out_proj (di,
+    d)``."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        d, s, di = cfg.d_model, cfg.ssm, cfg.d_inner
+        self.in_proj = param((d, 2 * di), device)
+        self.conv_w = param((s.d_conv, di), device)
+        self.conv_b = param((di,), device)
+        self.x_proj = param((di, s.dt_rank + 2 * s.d_state), device)
+        self.dt_proj = param((s.dt_rank, di), device)
+        self.dt_bias = param((di,), device, F32)
+        self.A_log = param((di, s.d_state), device, F32)
+        self.D = param((di,), device, F32)
+        self.out_proj = param((di, d), device)
+
+    def init_(self, g: torch.Generator) -> None:
+        """The reference's init: ``dt_bias = softplus^-1(0.01)``, ``A_log =
+        log(1..N)`` on every channel, ``D = 1``."""
+        d, di = self.in_proj.shape[0], self.D.shape[0]
+        rank, n = self.dt_proj.shape[0], self.A_log.shape[1]
+        for t, scale in ((self.in_proj, 1 / math.sqrt(d)),
+                         (self.conv_w, 0.1), (self.x_proj, 1 / math.sqrt(di)),
+                         (self.dt_proj, 1 / math.sqrt(rank)),
+                         (self.out_proj, 1 / math.sqrt(di))):
+            t.copy_(dense_init(g, t.shape, scale))
+        self.conv_b.zero_()
+        self.dt_bias.copy_(torch.log(torch.expm1(
+            torch.full((di,), 0.01, dtype=F32, device=self.D.device))))
+        self.A_log.copy_(torch.log(torch.arange(
+            1, n + 1, dtype=F32, device=self.D.device)).expand(di, n))
+        self.D.fill_(1.0)
+
+
+def _ssm_inputs(p, u: torch.Tensor, cfg):
+    """u: ``(B, L, di)`` post-conv bf16 -> (dA, dBu, C)."""
+    s = cfg.ssm
+    bc = (u @ p.x_proj).to(F32)
+    dt, bm, cm = bc.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = softplus((dt.to(BF16) @ p.dt_proj).to(F32) + p.dt_bias)  # (B,L,di)
+    a = -torch.exp(p.A_log)                                        # (di, N)
+    da = torch.exp(dt[..., None] * a)                              # (B,L,di,N)
+    dbu = dt[..., None] * bm[:, :, None, :] * u.to(F32)[..., None]
+    return da, dbu, cm
+
+
+def _read(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``einsum("bdn,bn->bd")``: a state ``(B, di, N)`` read by ``C``."""
+    return torch.einsum("bdn,bn->bd", h, c)
+
+
+def _conv_silu(win: torch.Tensor, p, length: int) -> torch.Tensor:
+    conv = depthwise_conv(win, p.conv_w, p.conv_b, length)
+    return silu(conv.to(F32)).to(BF16)
+
+
+def _finish(p, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor):
+    y = y + u.to(F32) * p.D
+    y = y.to(BF16) * silu(z.to(F32)).to(BF16)
+    return y @ p.out_proj
+
+
+def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
+              chunk: int = 256, state=None):
+    """The layer after ``in_proj``: ``u_raw``/``z`` ``(B, S, di)`` bf16 ->
+    (out ``(B, S, D)``, the f32 state ``(B, di, N)``)."""
+    b, s_len, di = u_raw.shape
+    dc = cfg.ssm.d_conv
+    u = _conv_silu(F.pad(u_raw, (0, 0, dc - 1, 0)), p, s_len)
+    if state is None:
+        state = torch.zeros((b, di, cfg.ssm.d_state), dtype=F32,
+                            device=u.device)
+    nch = max(1, s_len // chunk)
+    ch = s_len // nch
+    uc = u.reshape(b, nch, ch, di)
+    ys = []
+    for c in range(nch):
+        da, dbu, cm = _ssm_inputs(p, uc[:, c], cfg)
+        for t in range(ch):
+            state = da[:, t] * state + dbu[:, t]
+            ys.append(_read(state, cm[:, t]))
+    return _finish(p, torch.stack(ys, dim=1), u, z), state
+
+
+def mamba_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,
+                return_state: bool = False):
+    """x: ``(B, S, D)``.  Full-sequence form (prefill)."""
+    u, z = (x @ p.in_proj).chunk(2, dim=-1)
+    out, state = mamba_mix(p, u, z, cfg, chunk=chunk, state=state)
+    return (out, state) if return_state else out
+
+
+def init_mamba_cache(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
+                            dtype=BF16, device=device),
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm.d_state), dtype=F32,
+                           device=device),
+    }
+
+
+def mamba_decode(p, x: torch.Tensor, cache, cfg):
+    """x: ``(B, 1, D)`` one token -> (out, the new ``{"conv", "ssm"}``)."""
+    u, z = (x @ p.in_proj).chunk(2, dim=-1)                 # (B,1,di)
+    win = torch.cat([cache["conv"], u], dim=1)              # (B,dc,di)
+    u1 = _conv_silu(win, p, 1)                              # (B,1,di)
+    da, dbu, cm = _ssm_inputs(p, u1, cfg)
+    h = da[:, 0] * cache["ssm"] + dbu[:, 0]                 # (B,di,N)
+    y = _read(h, cm[:, 0])[:, None]                         # (B,1,di)
+    return _finish(p, y, u1, z), {"conv": win[:, 1:], "ssm": h}

@@ -2,8 +2,9 @@
 ``repro/models/mlp.py``.
 
 Products take bf16 in and give bf16 out; the activation runs in f32, is
-cast to bf16 and then multiplied in bf16 (the reference's sequence).  GELU
-is the tanh form, ``jax.nn.gelu``'s default.
+cast to bf16 and then multiplied in bf16 (the reference's sequence).  SiLU
+is ``x * sigmoid(x)`` as ``jax.nn.silu``; GELU is the tanh form,
+``jax.nn.gelu``'s default.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import BF16, F32, dense_init, param
+from .layers import BF16, F32, dense_init, param, silu
 
 KINDS = ("swiglu", "geglu", "relu2", "gelu")
 GATED = ("swiglu", "geglu")
@@ -49,7 +50,7 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     h = x @ p.w_in
     if kind == "swiglu":
         g = x @ p.w_gate
-        h = F.silu(g.to(F32)).to(BF16) * h
+        h = silu(g.to(F32)).to(BF16) * h
     elif kind == "geglu":
         g = x @ p.w_gate
         h = F.gelu(g.to(F32), approximate="tanh").to(BF16) * h

@@ -8,10 +8,10 @@ the weights on the model's device from a ``torch.Generator``;
 :func:`params_from_jax` carries the JAX package's param pytree over,
 unstacking its per-segment leading axis.
 
-Caches are a list with one ``{"k", "v"}`` dict per layer in execution
-order; :func:`forward_decode` updates them in place.  ``forward_train``,
-``loss_fn`` and the remat policies come with the training slice (ROADMAP
-Queue 1 item 5).
+Caches are a list with one dict per layer in execution order (each
+kind's, ``models/blocks.py``); :func:`forward_decode` updates them in
+place.  ``forward_train``, ``loss_fn`` and the remat policies come with
+the training slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 from ..core.env import resolve_device
 from . import attention as attn
 from . import blocks
-from .layers import (F32, dense_init, embed_lookup, param, rms_norm,
+from .layers import (BF16, F32, dense_init, embed_lookup, param, rms_norm,
                      rope_tables)
 
 Caches = List[Dict[str, torch.Tensor]]
@@ -35,7 +35,6 @@ class Transformer(torch.nn.Module):
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        blocks.check_ported(cfg)
         self.cfg = cfg
         self.embed = param((cfg.vocab_size, cfg.d_model), device)
         self.final_norm = param((cfg.d_model,), device, F32)
@@ -63,12 +62,26 @@ def init_params(cfg, seed: int = 0, *, device=None) -> Transformer:
     return model
 
 
+def _leaves(tree, prefix: str = "") -> Dict[str, object]:
+    """A nested dict's leaves under their dotted paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 @torch.no_grad()
 def params_from_jax(tree, cfg, device=None) -> Transformer:
     """The JAX package's ``init_params`` pytree (numpy arrays, f32) as a
     :class:`Transformer` on ``device`` (default CUDA).  Segment ``si``'s
     params are stacked over a leading axis ``n``; layer ``j`` of the
-    segment takes index ``j`` of every leaf."""
+    segment takes index ``j`` of every leaf.  A block's parameter names are
+    the pytree's dotted paths (``attn.wq``, ``moe.w_in``, ``rglru.lam``,
+    ``mamba.A_log``, ``xattn.wo``, ``mlp.w_gate``, ``norm2``); a leaf
+    missing on either side or of another shape raises ``ValueError``."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
 
@@ -86,32 +99,36 @@ def params_from_jax(tree, cfg, device=None) -> Transformer:
         seg = tree[f"seg{si}"]
         for j in range(n):
             for i, _ in enumerate(pattern):
-                src, blk, at = seg[f"sub{i}"], next(layers), f"seg{si}[{j}].sub{i}"
-                put(blk.norm1, np.asarray(src["norm1"])[j], f"{at}.norm1")
-                put(blk.norm2, np.asarray(src["norm2"])[j], f"{at}.norm2")
-                for name in ("wq", "wk", "wv", "wo"):
-                    put(getattr(blk.attn, name),
-                        np.asarray(src["attn"][name])[j], f"{at}.attn.{name}")
-                for name, w in (("w_in", blk.mlp.w_in), ("w_out", blk.mlp.w_out),
-                                ("w_gate", blk.mlp.w_gate)):
-                    if w is not None:
-                        put(w, np.asarray(src["mlp"][name])[j],
-                            f"{at}.mlp.{name}")
+                src, blk = _leaves(seg[f"sub{i}"]), next(layers)
+                at = f"seg{si}[{j}].sub{i}"
+                mine = dict(blk.named_parameters())
+                if sorted(src) != sorted(mine):
+                    raise ValueError(f"params_from_jax: {at} has leaves "
+                                     f"{sorted(src)}, the model wants "
+                                     f"{sorted(mine)}")
+                for name, w in mine.items():
+                    put(w, np.asarray(src[name])[j], f"{at}.{name}")
     return model
 
 
 def _input_embeds(model: Transformer, batch, cfg) -> torch.Tensor:
-    if "image_embeds" in batch:
-        raise blocks.not_ported("xattn")
     if cfg.embed_stub and "frames" in batch:
-        raise blocks.not_ported("embed_stub")
+        return batch["frames"].to(BF16)
     return embed_lookup(model.embed, batch["tokens"])
+
+
+def _rope(positions: torch.Tensor, cfg):
+    """The RoPE tables of a forward's positions (none for an arch without
+    attention heads)."""
+    if not cfg.num_heads:
+        return None
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
 # ---- serving ------------------------------------------------------------------
 
 def init_caches(cfg, batch: int, max_seq: int, device=None) -> Caches:
-    """Zeroed KV caches, one dict per layer, on ``device`` (default CUDA)."""
+    """Zeroed caches, one dict per layer, on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     spec = attn.cache_spec(cfg, max_seq)
     return [blocks.init_layer_cache(kind, cfg, spec, batch, dev)
@@ -119,18 +136,22 @@ def init_caches(cfg, batch: int, max_seq: int, device=None) -> Caches:
 
 
 def forward_prefill(model: Transformer, batch, cfg, max_seq: int):
-    """Prompt ``{"tokens": (B, S)}`` -> (last-token logits ``(B, V)``
-    bf16, caches)."""
+    """Prompt ``{"tokens": (B, S)}`` (or ``{"frames": (B, S, D)}`` for an
+    ``embed_stub`` arch; ``"image_embeds": (B, N, D)`` for ``xattn``
+    layers) -> (last-token logits ``(B, V)`` bf16, caches)."""
     x = _input_embeds(model, batch, cfg)
+    img = batch.get("image_embeds")
+    if img is not None:
+        img = img.to(BF16)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    tables = _rope(positions, cfg)
     spec = attn.cache_spec(cfg, max_seq)
     caches = []
     for layer in model.layers:
         x, c = blocks.apply_layer_prefill(layer.kind, layer, x, positions,
-                                          cfg, spec, tables)
+                                          cfg, spec, tables, img)
         caches.append(c)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x[:, -1] @ model.embed.t(), caches
@@ -142,7 +163,7 @@ def forward_decode(model: Transformer, batch, caches: Caches, cfg,
     V)`` bf16, caches updated in place)."""
     pos = batch["pos"]
     x = embed_lookup(model.embed, batch["token"][:, None])
-    tables = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    tables = _rope(pos[:, None], cfg)
     spec = attn.cache_spec(cfg, max_seq)
     for layer, cache in zip(model.layers, caches):
         x, _ = blocks.apply_layer_decode(layer.kind, layer, x, pos, cache,

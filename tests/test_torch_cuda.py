@@ -867,3 +867,72 @@ def test_serve_runtime_on_the_card(cuda_device, weighted_text, tmp_path):
     _hold_engines({r.rid: r.out for r in card}, {r.rid: r.out for r in cpu},
                   card_logits, cpu_logits)
 
+
+
+# ---- the remaining serving kinds at reduced width ---------------------------------
+
+KIND_CASES = {
+    # MoE at the published capacity factors, so that tokens drop
+    "mixtral-8x22b": {"capacity_factor": 1.25},
+    "llama4-maverick-400b-a17b": {"capacity_factor": 2.0},
+    "recurrentgemma-2b": None, "falcon-mamba-7b": None,
+    "llama-3.2-vision-11b": None, "musicgen-large": None}
+
+
+def _run_kind(model, cfg, batch, steps, device):
+    from repro_torch.models import forward_decode, forward_prefill
+    batch = {k: v.to(device) for k, v in batch.items()}
+    plen = next(iter(batch.values())).shape[1]
+    with torch.inference_mode():
+        lg, caches = forward_prefill(model, batch, cfg, 32)
+        out = [(lg.float().cpu(), [{k: c[k].float().cpu() for k in c}
+                                   for c in caches])]
+        for i, tok in enumerate(steps):
+            lg, caches = forward_decode(
+                model, {"token": tok.to(device),
+                        "pos": torch.full((len(tok),), plen + i,
+                                          dtype=torch.int32, device=device)},
+                caches, cfg, 32)
+            out.append((lg.float().cpu(), [{k: c[k].float().cpu() for k in c}
+                                           for c in caches]))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(KIND_CASES))
+def test_serving_kind_on_the_card_matches_the_cpu(cuda_device, name):
+    """Each serving kind's reduced arch (MoE at the published capacity, a
+    recurrent prefill and decode, the VLM with ``image_embeds``, musicgen
+    with ``frames``) on the card against the same weights on the CPU:
+    prefill and four decode steps, logits and every cache leaf within
+    ``COMPILED_TOL``."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    cfg = reduced_config(name)
+    if KIND_CASES[name]:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **KIND_CASES[name]))
+    cpu = init_params(cfg, 3, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    g = torch.Generator().manual_seed(4)
+    batch = ({"frames": torch.randn((2, 7, cfg.d_model), generator=g)}
+             if cfg.embed_stub else
+             {"tokens": torch.randint(0, cfg.vocab_size, (2, 7), generator=g,
+                                      dtype=torch.int32)})
+    if "xattn" in cfg.layer_pattern:
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.num_image_tokens, cfg.d_model), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
+                          dtype=torch.int32)
+    got = _run_kind(card, cfg, batch, steps, cuda_device)
+    want = _run_kind(cpu, cfg, batch, steps, "cpu")
+    tol = torch_lm.COMPILED_TOL
+    for step, ((lg, cs), (wlg, wcs)) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(lg.numpy(), wlg.numpy(), rtol=tol,
+                                   atol=tol, err_msg=f"logits step {step}")
+        for layer, (c, wc) in enumerate(zip(cs, wcs)):
+            assert sorted(c) == sorted(wc)
+            for k in c:
+                np.testing.assert_allclose(
+                    c[k].numpy(), wc[k].numpy(), rtol=tol, atol=tol,
+                    err_msg=f"{k} layer {layer} step {step}")

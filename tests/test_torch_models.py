@@ -36,6 +36,7 @@ from repro_torch import configs
 from repro_torch.models import (attention, forward_decode, forward_prefill,
                                 init_caches, init_params, layers, mlp,
                                 params_from_jax)
+from repro_torch.models import blocks
 from repro_torch.models.blocks import plan_segments
 
 TOL = 2e-2
@@ -317,22 +318,12 @@ def test_init_params_draws_the_reference_scales():
     assert caches[0]["k"].shape == (3, 20, cfg.num_kv_heads, cfg.head_dim)
 
 
-@pytest.mark.parametrize("name,what", [
-    ("mixtral-8x22b", "MoE"), ("recurrentgemma-2b", "recurrent"),
-    ("falcon-mamba-7b", "recurrent"), ("llama-3.2-vision-11b", "VLM")])
-def test_unported_kinds_raise(name, what):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item 5, .*{what}"):
-        init_params(configs.reduced_config(name), device="cpu")
-
-
 def test_audio_frames_and_bad_shapes_raise():
+    """musicgen's code ids prefill as tokens (its frames:
+    tests/test_torch_xattn_audio.py), and a carried leaf of the wrong shape
+    raises."""
     cfg = configs.reduced_config("musicgen-large")
     model = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="embed_stub"):
-        forward_prefill(model, {"frames": torch.zeros(1, 3, cfg.d_model)},
-                        cfg, 16)
-    # code ids decode as tokens
     lg, _ = forward_prefill(model, {"tokens": torch.ones(1, 3,
                                                          dtype=torch.int32)},
                             cfg, 16)
@@ -342,6 +333,23 @@ def test_audio_frames_and_bad_shapes_raise():
     tree["embed"] = tree["embed"][:, :32]
     with pytest.raises(ValueError, match="embed"):
         params_from_jax(tree, phi4, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(jconfigs.ARCHS))
+def test_every_arch_builds_and_carries_over(name):
+    """Every arch's reduced config builds with ``init_params`` and takes the
+    JAX package's draw through ``params_from_jax``, leaf for leaf."""
+    cfg, jcfg = configs.reduced_config(name), jconfigs.reduced_config(name)
+    model = init_params(cfg, device="cpu")
+    assert [b.kind for b in model.layers] == list(
+        blocks.layer_kinds(cfg))
+    tree = jax.tree_util.tree_map(np.asarray, jinit(jax.random.key(2), jcfg))
+    carried = params_from_jax(tree, cfg, device="cpu")
+    assert torch.equal(carried.embed, torch.from_numpy(
+        np.asarray(tree["embed"])).to(torch.bfloat16))
+    want = sum(np.asarray(leaf).size
+               for leaf in jax.tree_util.tree_leaves(tree))
+    assert sum(p.numel() for p in carried.parameters()) == want
 
 
 def test_entry_points_need_cuda_unless_told_cpu():
