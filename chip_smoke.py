@@ -134,6 +134,31 @@ Phases (any failure exits non-zero):
     ``frames``).  Then one batch-8 decode step timed as in 3f beside its
     bound (the weights and caches read once), launches and device ms a step
     from the profiler, and peak memory;
+3h. (run last, after 3g, which frees the card first) LM training:
+    ``repro_torch.launch.train.main`` in this process at phi4-mini-3.8b's
+    full width and depth (3,836,021,760 parameters, f32 master weights
+    drawn on the card from the seed, ``--batch 8 --seq 128 --steps 8
+    --remat full``) over the scale-22 text through ``graph_walk_source``:
+    the launch counts are set to 0 just before the call and read just after
+    (``parse_accumulate``, ``degree_histogram`` and ``exclusive_scan`` must
+    launch in the text load inside the first step, timed by a wrapper);
+    every loss finite, step 0's within 2 of ln V; the step ms (host clock
+    around each step, which ends in ``float(loss)``) and its median after 2
+    warm-up steps, tokens/s, and the step's bound (``6 N T`` FLOPs plus
+    attention's over 989 TFLOP/s bf16, then the clip's and AdamW's 36 bytes
+    a parameter over 3.35 TB/s; also with the recomputed forward, ``8 N
+    T``).  Then, from a fresh init, 6 steps on one fixed walk batch at lr
+    1e-3 (recorded: it diverges at this width) and, from another, at 3e-5,
+    which must lower the loss below 0.8 of its first value; one more step
+    traced (launches, device ms, the busy share); peak memory.  Then each of the six kinds' reduced archs
+    (phi4-mini, mixtral, recurrentgemma, falcon-mamba, llama-3.2-vision,
+    musicgen) on the card against the same f32 weights on the CPU: every
+    leaf's gradient, then one step's loss, gradient norm and params, with
+    cuBLAS's bf16 reduced-precision reduction on and off.  Then, on the
+    reduced phi4-mini: 6 steps checkpointed at steps 3 and 6, restored at 3
+    and replayed (losses within 1e-5), ``accum_steps=2`` against 1 on one
+    batch, and ``--compress-grads`` through the entry point carrying a
+    nonzero error buffer.  Its numbers are under ``train_lm`` in the JSON;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -2213,6 +2238,380 @@ def phase_serve_kinds(torch, kernels, snap_path, text_path, report):
     return {f"serve_kinds: {KIND_HEADLINE}'s text request": lc}
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: LM training at phi4-mini-3.8b's full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 8
+TRAIN_SKIP = 2           # warm-up steps left out of the step median
+FIXED_STEPS = 6          # steps on one fixed walk batch: the loss must fall
+# the fixed batch's learning rates, each from a fresh init at warm-up 2:
+# the reduced config's 1e-3 (tests/test_train.py) diverges at full width
+# (Adam's first steps move every element by ~lr, and the loss climbs back
+# past its start within 4 steps: PERF.md, section 5), so it is recorded,
+# and the loss is held to fall at 3e-5
+FIXED_LRS, FIXED_CHECKED_LR = (1e-3, 3e-5), 3e-5
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
+# bytes a parameter moves in the clip and AdamW at the least: p, m, v read
+# and written, the gradient written by the backward pass and read by the
+# norm and by the update
+OPT_BYTES_PER_PARAM = 36
+# the reduced archs held against the CPU, one kind each
+TRAIN_KINDS = ("phi4-mini-3.8b", "mixtral-8x22b", "recurrentgemma-2b",
+               "falcon-mamba-7b", "llama-3.2-vision-11b", "musicgen-large")
+# the card against the CPU on the same weights and batch: each leaf's
+# gradient within CARD_GRAD_TOL of its largest magnitude (the CPU tests'
+# GRAD_TOL against the reference run op by op), the loss
+# (tests/torch_train_ref.py's TRAIN_RTOL), the gradient norm, and the
+# params after one AdamW step of lr 1e-3 (Adam's first update is near
+# lr * sign(g), so an element whose gradient is near 0 may step the other
+# way: up to 2 lr, plus the decay)
+CARD_GRAD_TOL = 5e-2
+CARD_LOSS_RTOL, CARD_GNORM_RTOL, CARD_PARAM_ATOL = 2e-3, 1e-2, 2.5e-3
+
+
+def train_bound(cfg, tokens: int, params: int) -> dict:
+    """The step's least time on the card: the matrix FLOPs of the forward
+    and backward passes (``6 N T`` plus attention's scores and values)
+    over the dense bf16 peak, then the clip's and AdamW's bytes over the
+    HBM rate; the two run one after the other.  ``8 N T`` counts the
+    forward again, as ``remat="full"`` recomputes it."""
+    attn = 4 * tokens * TRAIN_SEQ * cfg.num_heads * cfg.head_dim \
+        * cfg.num_layers                    # q k^T and p v, one forward
+    fwd = 2 * params * tokens + attn
+    opt_ms = bound_ms(OPT_BYTES_PER_PARAM * params)
+    row = {"flops": 3 * fwd, "flops_with_recompute": 4 * fwd,
+           "opt_bytes": OPT_BYTES_PER_PARAM * params, "opt_ms": opt_ms}
+    row["flops_ms"] = row["flops"] / BF16_FLOPS_PER_S * 1e3
+    row["flops_with_recompute_ms"] = \
+        row["flops_with_recompute"] / BF16_FLOPS_PER_S * 1e3
+    row["bound_ms"] = row["flops_ms"] + opt_ms
+    row["bound_ms_with_recompute"] = row["flops_with_recompute_ms"] + opt_ms
+    return row
+
+
+def spread(xs) -> dict:
+    xs = sorted(xs)
+    mean = sum(xs) / len(xs)
+    return {"p50": xs[len(xs) // 2], "mean": mean, "min": xs[0],
+            "max": xs[-1], "std": (sum((x - mean) ** 2 for x in xs)
+                                   / len(xs)) ** 0.5, "n": len(xs)}
+
+
+def traced_step(torch, step_fn, state, batch):
+    """One training step under the profiler: launches, device ms (the
+    summed records), the device's busy share (their union over the step's
+    wall time) and the kernels that take the most device time."""
+    with traced(torch) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    launches, records = card_records(prof)
+    kept = [records[e.id] for e in launches if e.id in records]
+    by_kernel = {}
+    for r in kept:
+        n, us = by_kernel.get(r.name, (0, 0.0))
+        by_kernel[r.name] = (n + 1, us + r.time_range.end - r.time_range.start)
+    busy = union_us([(r.time_range.start, r.time_range.end)
+                     for r in kept]) / 1e6
+    return state, {
+        "wall_ms": wall * 1e3, "launches": len(launches),
+        "kernel_launches": sum("LaunchKernel" in e.name for e in launches),
+        "device_ms": sum(r.time_range.end - r.time_range.start
+                         for r in kept) / 1e3,
+        "device_busy_share": busy / wall, "records_lost":
+        len(launches) - len(kept),
+        "top": [{"name": name[:70], "calls": n, "device_ms": us / 1e3}
+                for name, (n, us) in sorted(by_kernel.items(),
+                                            key=lambda kv: -kv[1][1])[:10]]}
+
+
+def train_headline(torch, kernels, text_path, row):
+    """``repro_torch.launch.train.main`` at phi4-mini-3.8b's full width and
+    depth over the scale-22 text (its walks, loaded in the first step with
+    the loader's launches counted), then the loss on one fixed walk batch,
+    then one traced step.  Returns the loader's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import corpus as corpus_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    params = cfg.param_count() + cfg.d_model          # + the final norm
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row.update(arch=TRAIN_ARCH, params=params, layers=cfg.num_layers,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               remat="full", reduced=None,
+               state_bytes_reckoned=16 * params)
+    say(f"train_lm: {params} parameters; f32 params, grads and two "
+        f"moments take {16 * params / 1e9:.1f} GB")
+    captured, loads = {}, []
+    real_csr = corpus_mod.WalkCorpus._csr_arrays
+
+    def run(real, args, kw):
+        out = real(*args, **kw)
+        captured.update(source=args[2], state=out[0], history=out[1])
+        return out
+
+    def timed_csr(self):
+        cold = self._offsets is None
+        t0 = time.perf_counter()
+        out = real_csr(self)
+        if cold:
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t0)
+        return out
+
+    argv = ["--arch", TRAIN_ARCH, "--graph", text_path, "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_STEPS), "--remat", "full", "--seed", str(SEED)]
+    corpus_mod.WalkCorpus._csr_arrays = timed_csr
+    try:
+        with spy_on(train_loop, "run", run):
+            rc, secs, lc = counted(torch, kernels,
+                                   lambda: launch_train.main(argv))
+    finally:
+        corpus_mod.WalkCorpus._csr_arrays = real_csr
+    require(rc == 0, f"train_lm: launch.train exited {rc}")
+    need(lc, LOAD_KERNELS, "train_lm: the text load inside training")
+    hist, state = captured["history"], captured["state"]
+    losses = [h["loss"] for h in hist]
+    require(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train_lm: {TRAIN_STEPS} finite losses ({losses})")
+    ln_v = float(np.log(cfg.vocab_size))
+    require(abs(losses[0] - ln_v) < 2.0,
+            f"train_lm: step 0's loss {losses[0]} near ln V = {ln_v}")
+    require(len(loads) == 1, f"train_lm: the graph loaded once ({loads})")
+    step_ms = [h["dt"] * 1e3 for h in hist]
+    med = spread(step_ms[TRAIN_SKIP:])
+    row.update(main_s=secs, losses=losses, ln_vocab=ln_v,
+               grad_norms=[h["grad_norm"] for h in hist],
+               lrs=[h["lr"] for h in hist], step_ms=step_ms,
+               step_ms_after_warmup=med,
+               tokens_per_s=tokens / (med["p50"] / 1e3),
+               text_load_s=loads[0], launches=lc,
+               peak_memory_bytes_main=torch.cuda.max_memory_allocated())
+    row.update(bound=train_bound(cfg, tokens, params))
+    say(json.dumps({"train_lm_main": {k: row[k] for k in (
+        "losses", "step_ms", "tokens_per_s", "text_load_s", "launches",
+        "peak_memory_bytes_main")}}))
+
+    # the loss on one fixed walk batch, as tests/test_train.py asks of the
+    # reduced config, from a fresh init at each learning rate
+    source = captured["source"]
+    del state, captured
+    free_card(torch)
+    batch = source(0)
+    toks = batch["tokens"]
+    row["fixed_batch"] = {"steps": FIXED_STEPS, "warmup_steps": 2,
+                          "checked_lr": FIXED_CHECKED_LR,
+                          # a walk at a dead end repeats its vertex
+                          "repeated_token_share": float(
+                              (toks[:, 1:] == toks[:, :-1]).float().mean())}
+    for lr in FIXED_LRS:
+        state = init_state(init_params(cfg, SEED, dtype=torch.float32))
+        step_fn = make_train_step(cfg, OptimizerConfig(
+            lr=lr, warmup_steps=2, decay_steps=100), remat_policy="full")
+        fixed = []
+        for _ in range(FIXED_STEPS):
+            state, m = step_fn(state, batch)
+            fixed.append(float(m["loss"]))
+        row["fixed_batch"][f"losses_lr_{lr:g}"] = fixed
+        if lr != FIXED_CHECKED_LR:
+            del state
+            free_card(torch)
+    require(all(np.isfinite(fixed)) and fixed[-1] < 0.8 * fixed[0],
+            f"train_lm: {FIXED_STEPS} steps on one walk batch at lr "
+            f"{FIXED_CHECKED_LR:g} lower the loss below 0.8 of its first "
+            f"value ({fixed})")
+    state, row["profile_step"] = traced_step(torch, step_fn, state, batch)
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del state, batch, source
+    return lc
+
+
+def kind_step(torch, name, reduced_precision):
+    """The reduced ``name`` on the card and on the CPU from the same f32
+    weights and batch: each leaf's gradient of one loss, then one training
+    step's loss, gradient norm and updated params."""
+    import copy
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = torch.device("cuda", 0)
+    cfg = reduced_config(name)
+    cpu = init_params(cfg, SEED, device="cpu", dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = synthetic_batch(cfg, 4, 32, 0, device="cpu")
+    step_fn = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=0,
+                                                   decay_steps=100))
+
+    def grads(model, b):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, b, cfg, "full").backward()
+        out = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced_precision
+    try:
+        g_card = grads(card, {k: v.to(dev) for k, v in batch.items()})
+        s_card, m_card = step_fn(init_state(card), batch)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    g_cpu = grads(cpu, batch)
+    s_cpu, m_cpu = step_fn(init_state(cpu), batch)
+    gerr = max(float((g_card[n] - g).abs().max() / g.abs().max())
+               for n, g in g_cpu.items())
+    loss, want = float(m_card["loss"]), float(m_cpu["loss"])
+    gn, gn_want = float(m_card["grad_norm"]), float(m_cpu["grad_norm"])
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(s_card.params.parameters(),
+                              s_cpu.params.parameters()))
+    what = f"train_kinds {name} (reduced-precision reduction " \
+           f"{'on' if reduced_precision else 'off'})"
+    require(gerr <= CARD_GRAD_TOL, f"{what}: every leaf's gradient within "
+            f"{CARD_GRAD_TOL} of its largest magnitude (max {gerr})")
+    require(abs(loss - want) <= CARD_LOSS_RTOL * abs(want),
+            f"{what}: loss {loss} against the CPU's {want}")
+    require(abs(gn - gn_want) <= CARD_GNORM_RTOL * abs(gn_want),
+            f"{what}: grad norm {gn} against the CPU's {gn_want}")
+    require(err <= CARD_PARAM_ATOL, f"{what}: params within "
+            f"{CARD_PARAM_ATOL} of the CPU's (max {err})")
+    return {"loss": loss, "cpu_loss": want, "grad_norm": gn,
+            "cpu_grad_norm": gn_want, "grad_max_rel_err": gerr,
+            "param_max_abs_err": err}
+
+
+def train_resume(torch, row):
+    """The reduced phi4-mini on the card: 6 steps checkpointed at step 3,
+    restored and replayed; ``--accum 2`` against ``--accum 1``; and
+    ``--compress-grads`` through the entry point."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.ft.coordinator import Coordinator, FTConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.optimizer import OptimizerConfig, global_norm
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = torch.device("cuda", 0)
+    cfg = reduced_config(TRAIN_ARCH)
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=50)
+    step_fn = make_train_step(cfg, oc)
+
+    def src(i):
+        return synthetic_batch(cfg, 4, 32, i, device=dev)
+
+    def fresh(seed=SEED, compression=False):
+        return init_state(init_params(cfg, seed, device=dev,
+                                      dtype=torch.float32),
+                          compression=compression)
+
+    ckpt = os.path.join(DATA, "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, hist = train_loop.run(fresh(), step_fn, src, num_steps=6,
+                             ckpt_dir=ckpt, log=lambda s: None,
+                             coordinator=Coordinator(FTConfig(ckpt_every=3)))
+    require(ckpt_io.latest_step(ckpt) == 6, "train_resume: checkpoints")
+    restored, at = ckpt_io.restore(fresh(SEED + 1), ckpt, 3)
+    require(at == 3 and int(restored.step) == 3 and restored.step.is_cuda,
+            "train_resume: restored at step 3 on the card")
+    _, again = train_loop.run(restored, step_fn, src, num_steps=6,
+                              log=lambda s: None)
+    a, b = [h["loss"] for h in hist[3:]], [h["loss"] for h in again]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    require(worst <= 1e-5, f"train_resume: the replayed steps' losses "
+            f"{b} against the uninterrupted run's {a}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    full = get_config(TRAIN_ARCH)
+    row["resume"] = {"losses": a, "replayed": b, "max_rel_err": worst,
+                     "ckpt_steps": [3, 6], "reduced": {
+                         "config": f"reduced_config({TRAIN_ARCH!r})",
+                         "reason": f"a full-width checkpoint writes f32 "
+                         f"params, mu and nu: "
+                         f"{12 * (full.param_count() + full.d_model) / 1e9:.1f}"
+                         f" GB to disk a save"}}
+
+    one, two = fresh(), fresh()
+    batch = synthetic_batch(cfg, 8, 32, 0, device=dev)
+    s1, m1 = step_fn(one, batch)
+    s2, m2 = make_train_step(cfg, oc, accum_steps=2)(two, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    perr = max(float(((p - q).abs() - 2e-3 * q.abs()).max().detach())
+               for p, q in zip(s2.params.parameters(),
+                               s1.params.parameters()))
+    require(abs(l1 - l2) <= 1e-5 * abs(l1) and perr <= 2e-5,
+            f"train_resume: --accum 2 against --accum 1 (loss {l2} vs "
+            f"{l1}; params past rtol 2e-3 by {perr})")
+    row["accum"] = {"loss_accum1": l1, "loss_accum2": l2,
+                    "params_past_rtol_2e-3": perr}
+
+    seen = {}
+
+    def run(real, args, kw):
+        out = real(*args, **kw)
+        seen["state"] = out[0]
+        return out
+    with spy_on(train_loop, "run", run):
+        rc = launch_train.main(["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                                "3", "--batch", "4", "--seq", "32",
+                                "--compress-grads"])
+    err = float(global_norm(seen["state"].error.values()))
+    require(rc == 0 and err > 0, f"train_resume: --compress-grads carries "
+            f"an error buffer (norm {err})")
+    row["compress_grads"] = {"error_norm": err}
+    del one, two, s1, s2, seen
+
+
+def phase_train_lm(torch, kernels, text_path, report):
+    """LM training on the card (phase 3h): phi4-mini-3.8b at full width and
+    depth through ``repro_torch.launch.train`` over the scale-22 text, the
+    six kinds' reduced archs against the CPU, and checkpoint, resume,
+    accumulation and compression on the reduced config.  Returns the
+    loader's launch counts inside training."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"allocated_before_bytes": torch.cuda.memory_allocated()}
+    report["train_lm"] = row            # kept whole if a check fails
+    lc = train_headline(torch, kernels, text_path, row)
+    free_card(torch)
+    say(json.dumps({"train_lm": row}))
+
+    kinds = {}
+    for name in TRAIN_KINDS:
+        kinds[name] = {"default": kind_step(torch, name, True),
+                       "reduced_precision_reduction_off":
+                       kind_step(torch, name, False)}
+    row["kinds"] = {"tol": {"grad_tol": CARD_GRAD_TOL,
+                            "loss_rtol": CARD_LOSS_RTOL,
+                            "grad_norm_rtol": CARD_GNORM_RTOL,
+                            "param_atol": CARD_PARAM_ATOL}, "archs": kinds}
+    train_resume(torch, row)
+    free_card(torch)
+    row["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps({"train_lm_checks": {k: row[k] for k in (
+        "kinds", "resume", "accum", "compress_grads", "phase_s")}}))
+    say("phase 3h: phi4-mini-3.8b trains at full width and depth on the "
+        "card; every kind's step agrees with the CPU")
+    return {"train_lm: the text load inside training": lc}
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -2759,6 +3158,7 @@ def main() -> int:
     by_path.update(phase_serve_kinds(torch, kernels, served_snap, p22,
                                      report))
     os.remove(served_snap)
+    by_path.update(phase_train_lm(torch, kernels, p22, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

@@ -6,10 +6,13 @@ The reference keys its walks with ``jax.random`` on the default
 algorithm (``jax/_src/prng.py``: ``threefry_seed``, ``threefry_2x32``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_randint``).
+``_randint``, ``_uniform``, ``_normal_real``).
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words;
-every function is vectorised over the leading dims.  uint32 arithmetic is
+every function is vectorised over the leading dims (a shaped draw takes
+one key).  ``normal`` is ``sqrt(2) * erfinv(u)`` of a bitwise uniform
+draw; ``torch.erfinv`` is not XLA's f32 polynomial, so its values differ
+from jax's in the last bits.  uint32 arithmetic is
 done in int64 and masked with ``& 0xFFFFFFFF`` (``torch.uint32`` lacks
 shifts and ``%`` on some backends).  Counts are the partitionable scheme's
 ``iota_2x32_shape``: element ``i`` of a flat sample uses the count pair
@@ -17,14 +20,17 @@ shifts and ``%`` on some backends).  Counts are the partitionable scheme's
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
-__all__ = ["key", "fold_in", "split", "random_bits", "randint",
-           "threefry_2x32"]
+__all__ = ["key", "fold_in", "split", "random_bits", "randint", "uniform",
+           "normal", "threefry_2x32"]
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -116,8 +122,35 @@ def randint_from_words(higher: torch.Tensor, lower: torch.Tensor, lo, hi):
     return (out - ((out >> 31) << 32)).to(torch.int32)
 
 
-def randint(k: torch.Tensor, lo, hi) -> torch.Tensor:
-    """``jax.random.randint(k, (), lo, hi, jnp.int32)`` for each key;
-    ``lo``/``hi`` are int32 ints or tensors broadcasting against the
-    keys' leading dims."""
-    return randint_from_words(*randint_words(k), lo, hi)
+def randint(k: torch.Tensor, lo, hi, shape=()) -> torch.Tensor:
+    """``jax.random.randint(k, shape, lo, hi, jnp.int32)``.  With ``shape
+    ()``, one sample for each key, ``lo``/``hi`` int32 ints or tensors
+    broadcasting against the keys' leading dims; with a shape, ``k`` is
+    one key."""
+    if not shape:
+        return randint_from_words(*randint_words(k), lo, hi)
+    n = math.prod(shape)
+    halves = split(k)
+    return randint_from_words(random_bits(halves[0], n),
+                              random_bits(halves[1], n), lo,
+                              hi).reshape(shape)
+
+
+def uniform(k: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, jnp.float32, minval, maxval)`` for one
+    key: 23 random mantissa bits under the exponent of 1.0, less 1, scaled
+    and shifted in f32."""
+    bits = random_bits(k, math.prod(shape))
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    out = (floats - 1.0) * (hi - lo) + lo
+    return torch.maximum(lo, out.reshape(shape))
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(k, shape, jnp.float32)`` for one key:
+    ``sqrt(2) * erfinv(u)``, ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return float(np.float32(np.sqrt(2))) * torch.erfinv(u)

@@ -1,8 +1,8 @@
 """GQA attention: full, chunked and sliding-window, with KV caches; the
 port of ``repro/models/attention.py``.
 
-The dtype sequence is the reference's: projections take bf16 in and give
-bf16 out; the bf16 scores are divided by ``sqrt(hd)`` rounded to bf16,
+The dtype sequence is the reference's: projections take bf16 in (each
+weight cast to bf16 at its use) and give bf16 out; the bf16 scores are divided by ``sqrt(hd)`` rounded to bf16,
 then cast to f32, where the additive ``-1e9`` mask and the softmax run;
 the probabilities are cast to bf16 before the product with V.  Explicit
 tensor ops throughout (``scaled_dot_product_attention`` would change that
@@ -31,14 +31,14 @@ from .layers import (BF16, F32, NEG_INF, apply_rope, causal_mask,
 class Attention(torch.nn.Module):
     """``wq (d, h, hd)``, ``wk``/``wv (d, kh, hd)``, ``wo (h, hd, d)``."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, dtype=BF16):
         super().__init__()
         d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.wq = param((d, h, hd), device)
-        self.wk = param((d, kh, hd), device)
-        self.wv = param((d, kh, hd), device)
-        self.wo = param((h, hd, d), device)
+        self.wq = param((d, h, hd), device, dtype)
+        self.wk = param((d, kh, hd), device, dtype)
+        self.wv = param((d, kh, hd), device, dtype)
+        self.wo = param((h, hd, d), device, dtype)
 
     def init_(self, g: torch.Generator) -> None:
         """The reference's scales: ``1/sqrt(d)`` for q, k, v and
@@ -54,13 +54,13 @@ class Attention(torch.nn.Module):
 def project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")``: ``(B, S, D)`` x ``(D, H, hd)``."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return (x @ w.to(BF16).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``: ``(B, S, H, hd)`` x ``(H, hd, D)``."""
     h, k, d = wo.shape
-    return out.flatten(-2) @ wo.reshape(h * k, d)
+    return out.flatten(-2) @ wo.to(BF16).reshape(h * k, d)
 
 
 def _qkv(p, x, tables):
@@ -110,13 +110,29 @@ def full_attention(q, k, v, *, q_offset: int = 0, window=None,
 def chunked_attention(q, k, v, *, chunk: int = 512, window=None):
     """Causal attention over q chunks: live memory O(chunk * S).  Each
     chunk sees its whole key prefix, so it equals :func:`full_attention`.
-    Used for prefill when ``S > 2048``."""
+    Used when ``S > 2048``."""
     s = q.shape[1]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     return torch.cat([full_attention(q[:, i:i + chunk], k, v, q_offset=i,
                                      window=window)
                       for i in range(0, s, chunk)], dim=1)
+
+
+def self_attention(q, k, v, cfg, *, chunk: int):
+    """Causal attention over a whole sequence, the reference's rule: the
+    score matrix materialised up to 2,048 tokens, q chunks of ``chunk``
+    beyond (512 in the prefill, 1,024 in training)."""
+    if q.shape[1] <= 2048:
+        return full_attention(q, k, v, window=cfg.window)
+    return chunked_attention(q, k, v, chunk=chunk, window=cfg.window)
+
+
+def attention_train(p, x, tables, cfg, *, chunk: int = 1024):
+    """The training forward of an ``attn`` layer: ``x (B, S, D)`` bf16 and
+    its positions' RoPE ``tables`` -> ``(B, S, D)`` bf16."""
+    q, k, v = _qkv(p, x, tables)
+    return project_out(self_attention(q, k, v, cfg, chunk=chunk), p.wo)
 
 
 # ---- KV cache (decode) ------------------------------------------------------

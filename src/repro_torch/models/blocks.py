@@ -1,5 +1,5 @@
-"""Per-layer assembly and the serving modes (prefill and decode); the port
-of ``repro/models/blocks.py``.
+"""Per-layer assembly and the three execution modes (train, prefill and
+decode); the port of ``repro/models/blocks.py``.
 
 A *segment* is a repeated pattern of layer kinds: ``("attn",)`` for
 homogeneous stacks, ``("rglru", "rglru", "attn")`` for RecurrentGemma,
@@ -52,7 +52,7 @@ class Block(torch.nn.Module):
     submodules' parameter names are the reference's pytree keys.  Norm
     scales are f32."""
 
-    def __init__(self, kind: str, cfg, *, device=None):
+    def __init__(self, kind: str, cfg, *, device=None, dtype=BF16):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
@@ -60,18 +60,20 @@ class Block(torch.nn.Module):
         d = cfg.d_model
         self.norm1 = param((d,), device, F32)
         if kind in ("attn", "xattn"):
-            self.add_module(kind, attn.Attention(cfg, device=device))
+            self.add_module(kind, attn.Attention(cfg, device=device,
+                                                 dtype=dtype))
         elif kind == "mamba":
-            self.mamba = mb.Mamba(cfg, device=device)
+            self.mamba = mb.Mamba(cfg, device=device, dtype=dtype)
         else:
-            self.rglru = rg.RGLRU(cfg, device=device)
+            self.rglru = rg.RGLRU(cfg, device=device, dtype=dtype)
         if kind == "mamba":
             return
         self.norm2 = param((d,), device, F32)
         if kind == "attn" and cfg.moe is not None:
-            self.moe = moem.MoE(cfg, device=device)
+            self.moe = moem.MoE(cfg, device=device, dtype=dtype)
         else:
-            self.mlp = mlpm.MLP(d, cfg.d_ff, cfg.mlp, device=device)
+            self.mlp = mlpm.MLP(d, cfg.d_ff, cfg.mlp, device=device,
+                                dtype=dtype)
 
     def init_(self, g: torch.Generator) -> None:
         for child in self.children():
@@ -80,14 +82,36 @@ class Block(torch.nn.Module):
         if self.kind != "mamba":
             self.norm2.zero_()
 
-    def ffn(self, x: torch.Tensor, cfg) -> torch.Tensor:
-        """``x`` plus the MLP (or MoE) of ``norm2(x)``."""
+    def ffn(self, x: torch.Tensor, cfg):
+        """``x`` plus the MLP (or MoE) of ``norm2(x)``, and the MoE's aux
+        loss (None for an MLP)."""
         h2 = rms_norm(x, self.norm2, cfg.norm_eps)
         if hasattr(self, "moe"):
-            y, _ = moem.moe_apply(self.moe, h2, cfg)
+            y, aux = moem.moe_apply(self.moe, h2, cfg)
         else:
-            y = mlpm.mlp_apply(self.mlp, h2, cfg.mlp)
-        return x + y
+            y, aux = mlpm.mlp_apply(self.mlp, h2, cfg.mlp), None
+        return x + y, aux
+
+
+# ---- train forward -----------------------------------------------------------
+
+def apply_layer_train(kind: str, p: Block, x, cfg, tables,
+                      image_embeds=None):
+    """One layer's training forward, the prefill's arithmetic with no
+    cache: ``x (B, S, D)`` bf16 -> (``x``, the MoE aux loss or None)."""
+    h = rms_norm(x, p.norm1, cfg.norm_eps)
+    if kind == "attn":
+        x = x + attn.attention_train(p.attn, h, tables, cfg)
+    elif kind == "xattn":
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: an xattn layer needs "
+                             f"image_embeds")
+        x = x + attn.cross_attention(p.xattn, h, image_embeds)
+    elif kind == "mamba":
+        return x + mb.mamba_apply(p.mamba, h, cfg), None
+    else:
+        x = x + rg.rglru_apply(p.rglru, h, cfg)
+    return p.ffn(x, cfg)
 
 
 # ---- prefill (returns caches) -------------------------------------------------
@@ -97,11 +121,8 @@ def apply_layer_prefill(kind: str, p: Block, x, positions, cfg,
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if kind == "attn":
         q, k, v = attn._qkv(p.attn, h, tables)
-        if x.shape[1] <= 2048:
-            out = attn.full_attention(q, k, v, window=cfg.window)
-        else:
-            out = attn.chunked_attention(q, k, v, window=cfg.window)
-        x = x + attn.project_out(out, p.attn.wo)
+        x = x + attn.project_out(attn.self_attention(q, k, v, cfg, chunk=512),
+                                 p.attn.wo)
         cache = _fill_cache(k, v, positions, spec)
     elif kind == "xattn":
         if image_embeds is None:
@@ -112,16 +133,16 @@ def apply_layer_prefill(kind: str, p: Block, x, positions, cfg,
         cache = {"k": k, "v": v}
     elif kind == "mamba":
         dc = cfg.ssm.d_conv
-        u_raw, z = (h @ p.mamba.in_proj).chunk(2, dim=-1)
+        u_raw, z = (h @ p.mamba.in_proj.to(BF16)).chunk(2, dim=-1)
         y, state = mb.mamba_mix(p.mamba, u_raw, z, cfg)
         return x + y, {"conv": u_raw[:, -(dc - 1):].contiguous(),
                        "ssm": state}
     else:
-        u_raw, g = (h @ p.rglru.in_proj).chunk(2, dim=-1)
+        u_raw, g = (h @ p.rglru.in_proj.to(BF16)).chunk(2, dim=-1)
         y, state = rg.rglru_mix(p.rglru, u_raw, g, cfg)
         x = x + y
         cache = {"conv": u_raw[:, -3:].contiguous(), "h": state}
-    return p.ffn(x, cfg), cache
+    return p.ffn(x, cfg)[0], cache
 
 
 def _fill_cache(k, v, positions, spec: attn.CacheSpec) -> Dict[str, torch.Tensor]:
@@ -176,4 +197,4 @@ def apply_layer_decode(kind: str, p: Block, x, pos, cache, spec, cfg,
     else:
         y, new = rg.rglru_decode(p.rglru, h, cache, cfg)
         cache.update(new)
-    return p.ffn(x + y, cfg), cache
+    return p.ffn(x + y, cfg)[0], cache

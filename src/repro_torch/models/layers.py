@@ -77,17 +77,18 @@ def depthwise_conv(win: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def param(shape: Sequence[int], device=None, dtype=BF16) -> torch.nn.Parameter:
-    """An uninitialised serving weight (no gradient, bf16 unless told):
-    ``init_params`` draws it, ``params_from_jax`` copies it in
-    (``models/transformer.py``).  The reference keeps f32 params and casts
-    each matrix to bf16 at every use; holding it in bf16 once is the
-    same."""
+    """An uninitialised weight, bf16 unless told, with no gradient until
+    its model is made trainable (an f32 ``Transformer``): ``init_params``
+    draws it, ``params_from_jax`` copies it in (``models/transformer.py``).
+    Every use casts a matrix to bf16, as the reference casts its f32
+    params."""
     return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
                                           device=device), requires_grad=False)
 
 
 def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``(V, D)`` table -> ``(B, S, D)`` bf16 activations."""
+    """``(V, D)`` table -> ``(B, S, D)`` bf16 activations (the rows are
+    gathered from the table in its own dtype, then cast)."""
     return embedding[tokens].to(BF16)
 
 
@@ -104,11 +105,11 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
 def causal_mask(sq: int, sk: int, q_offset: int = 0, window=None,
                 device=None) -> torch.Tensor:
     """``(sq, sk)`` additive f32 mask; ``q_offset`` = absolute position of
-    ``q[0]``."""
+    ``q[0]``.  Made without writing in place: a selective checkpoint that
+    keeps every op's output caches it."""
     qpos = torch.arange(sq, device=device)[:, None] + q_offset
     kpos = torch.arange(sk, device=device)[None, :]
     ok = kpos <= qpos
     if window is not None:
-        ok &= kpos > qpos - window
-    return torch.zeros((sq, sk), dtype=F32,
-                       device=device).masked_fill_(~ok, NEG_INF)
+        ok = ok & (kpos > qpos - window)
+    return torch.where(ok, 0.0, NEG_INF).to(F32)

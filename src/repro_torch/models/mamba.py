@@ -8,7 +8,11 @@ runs an associative scan, so a state differs from the reference's by f32
 rounding only.  Each step reads its output from the state it has just
 made, so no ``(B, L, d_inner, d_state)`` tensor of states is kept.
 Decode is the O(1) step.  ``A_log``, ``D`` and ``dt_bias`` are f32, as the
-reference uses them; the matrices and the conv are bf16.
+reference uses them; the matrices and the conv are held in the model's
+dtype (bf16 to serve, f32 to train) and cast to bf16 at each use.
+Training runs :func:`mamba_apply` under autograd, which keeps each step's
+``(B, d_inner, d_state)`` state for the backward pass; no op writes in
+place.
 """
 from __future__ import annotations
 
@@ -28,18 +32,18 @@ class Mamba(torch.nn.Module):
     (di,)`` f32, ``A_log (di, N)`` f32, ``D (di,)`` f32, ``out_proj (di,
     d)``."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, dtype=BF16):
         super().__init__()
         d, s, di = cfg.d_model, cfg.ssm, cfg.d_inner
-        self.in_proj = param((d, 2 * di), device)
-        self.conv_w = param((s.d_conv, di), device)
-        self.conv_b = param((di,), device)
-        self.x_proj = param((di, s.dt_rank + 2 * s.d_state), device)
-        self.dt_proj = param((s.dt_rank, di), device)
+        self.in_proj = param((d, 2 * di), device, dtype)
+        self.conv_w = param((s.d_conv, di), device, dtype)
+        self.conv_b = param((di,), device, dtype)
+        self.x_proj = param((di, s.dt_rank + 2 * s.d_state), device, dtype)
+        self.dt_proj = param((s.dt_rank, di), device, dtype)
         self.dt_bias = param((di,), device, F32)
         self.A_log = param((di, s.d_state), device, F32)
         self.D = param((di,), device, F32)
-        self.out_proj = param((di, d), device)
+        self.out_proj = param((di, d), device, dtype)
 
     def init_(self, g: torch.Generator) -> None:
         """The reference's init: ``dt_bias = softplus^-1(0.01)``, ``A_log =
@@ -62,9 +66,10 @@ class Mamba(torch.nn.Module):
 def _ssm_inputs(p, u: torch.Tensor, cfg):
     """u: ``(B, L, di)`` post-conv bf16 -> (dA, dBu, C)."""
     s = cfg.ssm
-    bc = (u @ p.x_proj).to(F32)
+    bc = (u @ p.x_proj.to(BF16)).to(F32)
     dt, bm, cm = bc.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
-    dt = softplus((dt.to(BF16) @ p.dt_proj).to(F32) + p.dt_bias)  # (B,L,di)
+    dt = softplus((dt.to(BF16) @ p.dt_proj.to(BF16)).to(F32)
+                  + p.dt_bias)                               # (B,L,di)
     a = -torch.exp(p.A_log)                                        # (di, N)
     da = torch.exp(dt[..., None] * a)                              # (B,L,di,N)
     dbu = dt[..., None] * bm[:, :, None, :] * u.to(F32)[..., None]
@@ -77,14 +82,14 @@ def _read(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_silu(win: torch.Tensor, p, length: int) -> torch.Tensor:
-    conv = depthwise_conv(win, p.conv_w, p.conv_b, length)
+    conv = depthwise_conv(win, p.conv_w.to(BF16), p.conv_b.to(BF16), length)
     return silu(conv.to(F32)).to(BF16)
 
 
 def _finish(p, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor):
     y = y + u.to(F32) * p.D
     y = y.to(BF16) * silu(z.to(F32)).to(BF16)
-    return y @ p.out_proj
+    return y @ p.out_proj.to(BF16)
 
 
 def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
@@ -112,7 +117,7 @@ def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
 def mamba_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,
                 return_state: bool = False):
     """x: ``(B, S, D)``.  Full-sequence form (prefill)."""
-    u, z = (x @ p.in_proj).chunk(2, dim=-1)
+    u, z = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)
     out, state = mamba_mix(p, u, z, cfg, chunk=chunk, state=state)
     return (out, state) if return_state else out
 
@@ -128,7 +133,7 @@ def init_mamba_cache(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
 
 def mamba_decode(p, x: torch.Tensor, cache, cfg):
     """x: ``(B, 1, D)`` one token -> (out, the new ``{"conv", "ssm"}``)."""
-    u, z = (x @ p.in_proj).chunk(2, dim=-1)                 # (B,1,di)
+    u, z = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)        # (B,1,di)
     win = torch.cat([cache["conv"], u], dim=1)              # (B,dc,di)
     u1 = _conv_silu(win, p, 1)                              # (B,1,di)
     da, dbu, cm = _ssm_inputs(p, u1, cfg)

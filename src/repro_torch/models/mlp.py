@@ -23,14 +23,16 @@ class MLP(torch.nn.Module):
     """``w_in (d, f)``, ``w_gate (d, f)`` for the gated kinds, ``w_out
     (f, d)``."""
 
-    def __init__(self, d_model: int, d_ff: int, kind: str, *, device=None):
+    def __init__(self, d_model: int, d_ff: int, kind: str, *, device=None,
+                 dtype=BF16):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
         self.kind = kind
-        self.w_in = param((d_model, d_ff), device)
-        self.w_out = param((d_ff, d_model), device)
-        self.w_gate = param((d_model, d_ff), device) if kind in GATED else None
+        self.w_in = param((d_model, d_ff), device, dtype)
+        self.w_out = param((d_ff, d_model), device, dtype)
+        self.w_gate = param((d_model, d_ff), device, dtype) \
+            if kind in GATED else None
 
     def init_(self, g: torch.Generator) -> None:
         """The reference's scales: ``1/sqrt(d)`` in, ``1/sqrt(f)`` out."""
@@ -46,13 +48,14 @@ class MLP(torch.nn.Module):
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """``p``: anything with bf16 ``w_in``/``w_out`` (and ``w_gate``)."""
-    h = x @ p.w_in
+    """``p``: anything with ``w_in``/``w_out`` (and ``w_gate``), each cast
+    to bf16 at its use."""
+    h = x @ p.w_in.to(BF16)
     if kind == "swiglu":
-        g = x @ p.w_gate
+        g = x @ p.w_gate.to(BF16)
         h = silu(g.to(F32)).to(BF16) * h
     elif kind == "geglu":
-        g = x @ p.w_gate
+        g = x @ p.w_gate.to(BF16)
         h = F.gelu(g.to(F32), approximate="tanh").to(BF16) * h
     elif kind == "relu2":       # nemotron squared-ReLU
         h = torch.square(torch.relu(h.to(F32))).to(BF16)
@@ -60,4 +63,4 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(h.to(F32), approximate="tanh").to(BF16)
     else:
         raise ValueError(kind)
-    return h @ p.w_out
+    return h @ p.w_out.to(BF16)

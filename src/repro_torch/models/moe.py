@@ -23,15 +23,15 @@ from .layers import BF16, F32, dense_init, param, silu
 
 class MoE(torch.nn.Module):
     """``router (D, E)``, ``w_in``/``w_gate (E, D, F)``, ``w_out (E, F,
-    D)``, all bf16."""
+    D)``, all of the model's matrix dtype."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, dtype=BF16):
         super().__init__()
         d, m = cfg.d_model, cfg.moe
-        self.router = param((d, m.num_experts), device)
-        self.w_in = param((m.num_experts, d, m.d_ff), device)
-        self.w_gate = param((m.num_experts, d, m.d_ff), device)
-        self.w_out = param((m.num_experts, m.d_ff, d), device)
+        self.router = param((d, m.num_experts), device, dtype)
+        self.w_in = param((m.num_experts, d, m.d_ff), device, dtype)
+        self.w_gate = param((m.num_experts, d, m.d_ff), device, dtype)
+        self.w_out = param((m.num_experts, m.d_ff, d), device, dtype)
 
     def init_(self, g: torch.Generator) -> None:
         """The reference's scales (``1/sqrt(d)`` in, ``1/sqrt(d_ff)`` out),
@@ -60,7 +60,7 @@ def route(p, xg: torch.Tensor, cfg):
     m = cfg.moe
     e_n = m.num_experts
     g, gs, _ = xg.shape
-    probs = torch.softmax((xg @ p.router).to(F32), dim=-1)     # (G,S,E)
+    probs = torch.softmax((xg @ p.router.to(BF16)).to(F32), dim=-1)  # (G,S,E)
 
     cap = int(gs * m.top_k / e_n * m.capacity_factor)
     cap = max(cap, m.top_k)
@@ -113,10 +113,10 @@ def moe_apply(p, x: torch.Tensor, cfg):
     dispatch = (combined > 0).to(BF16)                         # (G,S,E,C)
     xin = torch.einsum("gsd,gsec->egcd", xg, dispatch).reshape(
         e_n, g * cap, d)
-    h = torch.bmm(xin, p.w_in)                                 # (E,GC,F)
-    gt = torch.bmm(xin, p.w_gate)
+    h = torch.bmm(xin, p.w_in.to(BF16))                        # (E,GC,F)
+    gt = torch.bmm(xin, p.w_gate.to(BF16))
     h = silu(gt.to(F32)).to(BF16) * h
-    out = torch.bmm(h, p.w_out).view(e_n, g, cap, d)           # (E,G,C,D)
+    out = torch.bmm(h, p.w_out.to(BF16)).view(e_n, g, cap, d)  # (E,G,C,D)
     y = torch.einsum("egcd,gsec->gsd", out, combined.to(BF16))
     y = y.reshape(g * gs, d)
     if pad:

@@ -7,13 +7,14 @@ a_t = exp(-c * softplus(Lambda) * sigmoid(r_t))
 with input/recurrence gates r_t, i_t from linear maps of x.  The block is
 conv1d(4) -> RG-LRU, wrapped by linear in/out projections.  ``lam`` and
 the state ``h`` are f32, as the reference uses them; the matrices, the
-conv taps and the conv bias are bf16 (the reference casts each to bf16 at
-its use).
+conv taps and the conv bias are held in the model's dtype (bf16 to serve,
+f32 to train) and cast to bf16 at each use, as the reference casts them.
 
 The prefill runs the reference's chunks (``chunk=256``, ``nch = max(1, S //
 chunk)``); within a chunk the recurrence is stepped in order in f32 where
 the reference runs an associative scan, so a state differs from the
-reference's by f32 rounding only.  Decode is the O(1) step.
+reference's by f32 rounding only.  Decode is the O(1) step.  Training
+runs :func:`rglru_apply` under autograd; no op writes in place.
 """
 from __future__ import annotations
 
@@ -33,17 +34,17 @@ class RGLRU(torch.nn.Module):
     """``in_proj (d, 2w)`` (x, gate), ``conv_w (4, w)``, ``conv_b (w,)``,
     ``wr``/``wi (w, w)``, ``lam (w,)`` f32, ``out_proj (w, d)``."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, dtype=BF16):
         super().__init__()
         d = cfg.d_model
         w = cfg.lru_width or d
-        self.in_proj = param((d, 2 * w), device)
-        self.conv_w = param((4, w), device)
-        self.conv_b = param((w,), device)
-        self.wr = param((w, w), device)
-        self.wi = param((w, w), device)
+        self.in_proj = param((d, 2 * w), device, dtype)
+        self.conv_w = param((4, w), device, dtype)
+        self.conv_b = param((w,), device, dtype)
+        self.wr = param((w, w), device, dtype)
+        self.wi = param((w, w), device, dtype)
         self.lam = param((w,), device, F32)
-        self.out_proj = param((w, d), device)
+        self.out_proj = param((w, d), device, dtype)
 
     def init_(self, g: torch.Generator) -> None:
         """The reference's init: ``1/sqrt(d)`` and ``1/sqrt(w)`` scales, conv
@@ -61,8 +62,8 @@ class RGLRU(torch.nn.Module):
 
 def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """u: bf16 ``(B, L, W)`` -> f32 ``a`` and the gated input."""
-    r = torch.sigmoid((u @ p.wr).to(F32))
-    i = torch.sigmoid((u @ p.wi).to(F32))
+    r = torch.sigmoid((u @ p.wr.to(BF16)).to(F32))
+    i = torch.sigmoid((u @ p.wi.to(BF16)).to(F32))
     log_a = -_C * softplus(p.lam) * r                       # (B,L,W)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u.to(F32))
@@ -71,7 +72,7 @@ def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _out(p, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     y = h.to(BF16) * F.gelu(g.to(F32), approximate="tanh").to(BF16)
-    return y @ p.out_proj
+    return y @ p.out_proj.to(BF16)
 
 
 def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
@@ -79,7 +80,8 @@ def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
     """The layer after ``in_proj``: ``u_raw``/``g`` ``(B, S, W)`` bf16 ->
     (out ``(B, S, D)``, the f32 state ``(B, W)`` after the last token)."""
     b, s_len, w = u_raw.shape
-    u = depthwise_conv(F.pad(u_raw, (0, 0, 3, 0)), p.conv_w, p.conv_b, s_len)
+    u = depthwise_conv(F.pad(u_raw, (0, 0, 3, 0)), p.conv_w.to(BF16),
+                       p.conv_b.to(BF16), s_len)
     if state is None:
         state = torch.zeros((b, w), dtype=F32, device=u.device)
     nch = max(1, s_len // chunk)
@@ -98,7 +100,7 @@ def rglru_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,
                 return_state: bool = False):
     """x: ``(B, S, D)`` bf16 -> ``(B, S, D)`` (and the f32 state ``(B, W)``
     after the last token)."""
-    u, g = (x @ p.in_proj).chunk(2, dim=-1)
+    u, g = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)
     out, state = rglru_mix(p, u, g, cfg, chunk=chunk, state=state)
     return (out, state) if return_state else out
 
@@ -111,9 +113,9 @@ def init_rglru_cache(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
 
 def rglru_decode(p, x: torch.Tensor, cache, cfg):
     """x: ``(B, 1, D)`` one token -> (out, the new ``{"conv", "h"}``)."""
-    u, g = (x @ p.in_proj).chunk(2, dim=-1)                 # (B,1,W)
+    u, g = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)        # (B,1,W)
     win = torch.cat([cache["conv"], u], dim=1)              # (B,4,W)
-    u1 = depthwise_conv(win, p.conv_w, p.conv_b, 1)         # (B,1,W)
+    u1 = depthwise_conv(win, p.conv_w.to(BF16), p.conv_b.to(BF16), 1)
     a, gated = _gates(p, u1)
     h = a[:, 0] * cache["h"] + gated[:, 0]
     return _out(p, h[:, None], g), {"conv": win[:, 1:], "h": h}

@@ -1,24 +1,35 @@
-"""Model stack: init, prefill and decode; the port of
-``repro/models/transformer.py`` for serving.
+"""Model stack: init, train, prefill and decode; the port of
+``repro/models/transformer.py``.
 
-A :class:`Transformer` holds the tied embedding and every matrix in bf16
-once (the reference keeps f32 params and casts each to bf16 at every use:
-the same values), and the norm scales in f32.  :func:`init_params` draws
-the weights on the model's device from a ``torch.Generator``;
-:func:`params_from_jax` carries the JAX package's param pytree over,
-unstacking its per-segment leading axis.
+A :class:`Transformer` holds the tied embedding and every matrix in its
+``dtype`` and the norm scales (and the recurrent kinds' ``lam``,
+``A_log``, ``D``, ``dt_bias``) in f32.  The reference keeps f32 params
+and casts each matrix to bf16 at every use; the port casts at every use
+too (``w.to(BF16)``).  A training model is f32 (master weights, with
+gradients): the bf16 cotangent of each use widens to f32 and the uses
+sum in f32, as in the reference, which matters for the tied embedding (a
+gather from the f32 table and the head).  A serving model is bf16, held
+once: there the cast returns the same tensor and launches nothing.
+:func:`init_params` draws the weights on the model's device from a
+``torch.Generator``; :func:`params_from_jax` carries the JAX package's
+param pytree over, unstacking its per-segment leading axis.
 
 Caches are a list with one dict per layer in execution order (each
 kind's, ``models/blocks.py``); :func:`forward_decode` updates them in
-place.  ``forward_train``, ``loss_fn`` and the remat policies come with
-the training slice (ROADMAP Queue 1 item 5).
+place.  :func:`forward_train` checkpoints the reference's remat unit, one
+repetition of a segment's pattern, under a policy of
+:data:`REMAT_POLICIES` (``torch.utils.checkpoint``, non-reentrant); a
+policy changes memory, never values.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.env import resolve_device
 from . import attention as attn
@@ -27,20 +38,51 @@ from .layers import (BF16, F32, dense_init, embed_lookup, param, rms_norm,
                      rope_tables)
 
 Caches = List[Dict[str, torch.Tensor]]
+_aten = torch.ops.aten
+
+
+def _saving(ops):
+    """A selective-checkpoint policy that keeps the outputs of ``ops`` and
+    recomputes the rest."""
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _save_all(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE
+
+
+# the reference's jax.checkpoint policies: a dot with batch dimensions is a
+# bmm here (attention scores, MoE experts), one without an mm; None
+# checkpoints the whole unit (saves nothing extra)
+REMAT_POLICIES = {
+    "full": None,
+    "dots": _saving({_aten.mm.default, _aten.bmm.default}),
+    "dots_no_batch": _saving({_aten.mm.default}),
+    "nothing": None,
+    "everything": _save_all,
+}
 
 
 class Transformer(torch.nn.Module):
     """``embed (V, D)`` (tied with the head), ``final_norm (D,)`` and one
-    :class:`~.blocks.Block` per layer in execution order."""
+    :class:`~.blocks.Block` per layer in execution order.  ``dtype`` is
+    the matrices' (bf16 to serve; f32 to train, and then every parameter
+    requires a gradient)."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, dtype=BF16):
         super().__init__()
+        if dtype not in (BF16, F32):
+            raise ValueError(f"a model's dtype is bf16 or f32, not {dtype}")
         self.cfg = cfg
-        self.embed = param((cfg.vocab_size, cfg.d_model), device)
+        self.embed = param((cfg.vocab_size, cfg.d_model), device, dtype)
         self.final_norm = param((cfg.d_model,), device, F32)
         self.layers = torch.nn.ModuleList(
-            blocks.Block(kind, cfg, device=device)
+            blocks.Block(kind, cfg, device=device, dtype=dtype)
             for kind in blocks.layer_kinds(cfg))
+        self.requires_grad_(dtype == F32)
 
     @property
     def device(self) -> torch.device:
@@ -48,11 +90,13 @@ class Transformer(torch.nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg, seed: int = 0, *, device=None) -> Transformer:
+def init_params(cfg, seed: int = 0, *, device=None,
+                dtype=BF16) -> Transformer:
     """A model with the reference's init scales, drawn on ``device``
-    (default CUDA) from ``torch.Generator(device).manual_seed(seed)``."""
+    (default CUDA) from ``torch.Generator(device).manual_seed(seed)``;
+    ``dtype=F32`` gives trainable f32 master weights."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, dtype=dtype)
     g = torch.Generator(device=dev).manual_seed(int(seed))
     d = cfg.d_model
     model.embed.copy_(dense_init(g, model.embed.shape, d ** -0.5))
@@ -74,41 +118,59 @@ def _leaves(tree, prefix: str = "") -> Dict[str, object]:
 
 
 @torch.no_grad()
-def params_from_jax(tree, cfg, device=None) -> Transformer:
+def params_from_jax(tree, cfg, device=None, dtype=BF16) -> Transformer:
     """The JAX package's ``init_params`` pytree (numpy arrays, f32) as a
-    :class:`Transformer` on ``device`` (default CUDA).  Segment ``si``'s
-    params are stacked over a leading axis ``n``; layer ``j`` of the
-    segment takes index ``j`` of every leaf.  A block's parameter names are
-    the pytree's dotted paths (``attn.wq``, ``moe.w_in``, ``rglru.lam``,
+    :class:`Transformer` of ``dtype`` on ``device`` (default CUDA).
+    Segment ``si``'s params are stacked over a leading axis ``n``; layer
+    ``j`` of the segment takes index ``j`` of every leaf
+    (:func:`reference_paths`).  A block's parameter names are the
+    pytree's dotted paths (``attn.wq``, ``moe.w_in``, ``rglru.lam``,
     ``mamba.A_log``, ``xattn.wo``, ``mlp.w_gate``, ``norm2``); a leaf
     missing on either side or of another shape raises ``ValueError``."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
-
-    def put(dst: torch.Tensor, arr, what: str) -> None:
-        arr = np.array(arr, dtype=np.float32)      # a writable copy
-        if tuple(arr.shape) != tuple(dst.shape):
+    model = Transformer(cfg, device=dev, dtype=dtype)
+    src, paths = _leaves(tree), reference_paths(model)
+    want = {path for path, _ in paths.values()}
+    if set(src) != want:
+        raise ValueError(f"params_from_jax: the tree has leaves "
+                         f"{sorted(set(src) - want)} the model lacks and "
+                         f"lacks {sorted(want - set(src))}")
+    for name, w in model.named_parameters():
+        path, j = paths[name]
+        arr = np.array(src[path] if j is None else np.asarray(src[path])[j],
+                       dtype=np.float32)            # a writable copy
+        what = path if j is None else f"{path}[{j}]"
+        if tuple(arr.shape) != tuple(w.shape):
             raise ValueError(f"params_from_jax: {what} has shape "
-                             f"{arr.shape}, the model wants {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(arr))
-
-    put(model.embed, tree["embed"], "embed")
-    put(model.final_norm, tree["final_norm"], "final_norm")
-    layers = iter(model.layers)
-    for si, (pattern, n) in enumerate(blocks.plan_segments(cfg)):
-        seg = tree[f"seg{si}"]
-        for j in range(n):
-            for i, _ in enumerate(pattern):
-                src, blk = _leaves(seg[f"sub{i}"]), next(layers)
-                at = f"seg{si}[{j}].sub{i}"
-                mine = dict(blk.named_parameters())
-                if sorted(src) != sorted(mine):
-                    raise ValueError(f"params_from_jax: {at} has leaves "
-                                     f"{sorted(src)}, the model wants "
-                                     f"{sorted(mine)}")
-                for name, w in mine.items():
-                    put(w, np.asarray(src[name])[j], f"{at}.{name}")
+                             f"{arr.shape}, the model wants {tuple(w.shape)}")
+        w.copy_(torch.from_numpy(arr))
     return model
+
+
+def reference_paths(model: Transformer) -> Dict[str, Tuple[str, Optional[int]]]:
+    """Each parameter's name in ``model`` -> (the dotted path of its leaf
+    in the reference's params pytree, its index along that leaf's stacked
+    layer axis; None for ``embed`` and ``final_norm``):
+    ``layers.5.attn.wq`` of phi4-mini is ``("seg0.sub0.attn.wq", 5)``."""
+    slots = [(si, j, i) for si, (pattern, n) in enumerate(
+        blocks.plan_segments(model.cfg)) for j in range(n)
+        for i in range(len(pattern))]       # each layer's place in the scan
+    out = {}
+    for name, _ in model.named_parameters():
+        if name.startswith("layers."):
+            _, k, rest = name.split(".", 2)
+            si, j, i = slots[int(k)]
+            out[name] = (f"seg{si}.sub{i}.{rest}", j)
+        else:
+            out[name] = (name, None)
+    return out
+
+
+def stacked_rank(name: str, p: torch.Tensor) -> int:
+    """The rank of ``p``'s leaf in the reference, whose per-layer leaves
+    carry a leading layer axis: one more than the port's for a layer's
+    parameter (a ``(d,)`` norm is 2-D there)."""
+    return p.dim() + name.startswith("layers.")
 
 
 def _input_embeds(model: Transformer, batch, cfg) -> torch.Tensor:
@@ -123,6 +185,79 @@ def _rope(positions: torch.Tensor, cfg):
     if not cfg.num_heads:
         return None
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+# ---- training -----------------------------------------------------------------
+
+def _remat(fn, policy: Optional[str]):
+    if policy is None:
+        return fn
+    pol = REMAT_POLICIES[policy]
+    if pol is None:
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     pol))
+
+
+def _run_unit(units, cfg, tables, img, x):
+    """One remat unit's layers in order -> (x, their MoE aux loss or
+    None)."""
+    aux = None
+    for layer in units:
+        x, a = blocks.apply_layer_train(layer.kind, layer, x, cfg, tables,
+                                        img)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def forward_train(model: Transformer, batch, cfg,
+                  remat_policy: Optional[str] = "full"):
+    """``batch``: ``tokens`` (or ``frames`` for an ``embed_stub`` arch; plus
+    ``image_embeds`` for ``xattn`` layers) -> (logits ``(B, S, V)`` bf16,
+    the summed MoE aux loss, an f32 scalar).  Each repetition of a
+    segment's pattern runs under ``remat_policy``."""
+    x = _input_embeds(model, batch, cfg)
+    img = batch.get("image_embeds")
+    if img is not None:
+        img = img.to(BF16)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    tables = _rope(positions, cfg)
+    aux, k = None, 0
+    for pattern, n in blocks.plan_segments(cfg):
+        for _ in range(n):
+            unit = model.layers[k:k + len(pattern)]
+            k += len(pattern)
+            x, a = _remat(functools.partial(_run_unit, unit, cfg, tables,
+                                            img), remat_policy)(x)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = x @ model.embed.to(BF16).t()
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return logits, aux
+
+
+def loss_fn(model: Transformer, batch, cfg,
+            remat_policy: Optional[str] = "full") -> torch.Tensor:
+    """Mean next-token cross-entropy in f32 (plus the MoE aux loss times
+    its weight): the reference's max-shifted log-sum-exp, with the target
+    logit read by ``gather`` where the reference multiplies by a one-hot
+    (the same number, without a ``(B, S, V)`` f32 one-hot)."""
+    logits, aux = forward_train(model, batch, cfg, remat_policy)
+    logits = logits.to(F32)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    nll = (lse - tgt).mean()
+    if cfg.moe is not None:
+        nll = nll + cfg.moe.aux_loss_weight * aux
+    return nll
 
 
 # ---- serving ------------------------------------------------------------------
@@ -154,7 +289,7 @@ def forward_prefill(model: Transformer, batch, cfg, max_seq: int):
                                           cfg, spec, tables, img)
         caches.append(c)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x[:, -1] @ model.embed.t(), caches
+    return x[:, -1] @ model.embed.to(BF16).t(), caches
 
 
 def forward_decode(model: Transformer, batch, caches: Caches, cfg,
@@ -169,4 +304,4 @@ def forward_decode(model: Transformer, batch, caches: Caches, cfg,
         x, _ = blocks.apply_layer_decode(layer.kind, layer, x, pos, cache,
                                          spec, cfg, tables)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x[:, 0] @ model.embed.t(), caches
+    return x[:, 0] @ model.embed.to(BF16).t(), caches

@@ -13,15 +13,15 @@ each printing one OK line:
                     (path, section) with a structured CorruptGraphError
                     while sibling sections and other graphs serve, and a
                     swap on disk recovers
+  sigterm-resume    a walk-corpus consumer SIGTERMed mid-stream exits at
+                    the step boundary with a durable cursor, and a restart
+                    resumes the stream bitwise (``ft.Coordinator``)
   shard-reexec      a shard of the sharded load whose in-span retries run
                     out re-executes its byte span, bitwise equal to the
                     fault-free load; one that never recovers raises
                     ShardLoadError on every rank.  Runs a world of 2 ranks
                     on ``--device`` (gloo, or NCCL with a card per rank);
                     like the reference's, only when asked for
-
-The reference's ``sigterm-resume`` needs ``ft.Coordinator`` (ROADMAP Queue 1
-item 5).
 
     python -m repro_torch.scripts.chaos_matrix                 # on CUDA
     python -m repro_torch.scripts.chaos_matrix --device cpu
@@ -31,9 +31,12 @@ item 5).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import shutil
+import signal
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -47,7 +50,8 @@ from repro_torch.core.cache import SourceCache
 from repro_torch.core.faults import (CorruptGraphError, FaultPlan, FaultSpec,
                                      ShardLoadError, StageTimeout, fault_plan)
 
-LOCAL_SCENARIOS = ("transient-retry", "stuck-reader", "quarantine-swap")
+LOCAL_SCENARIOS = ("transient-retry", "stuck-reader", "quarantine-swap",
+                   "sigterm-resume")
 ALL_SCENARIOS = LOCAL_SCENARIOS + ("shard-reexec",)
 SHARD_WORLD = 2
 
@@ -206,17 +210,99 @@ def scenario_quarantine_swap(tmp, seed, device):
           f"swap recovered OK")
 
 
+_SIGTERM_CHILD = r'''
+import hashlib, sys
+from repro_torch.core.source import open_graph
+from repro_torch.data.corpus import (CorpusConfig, WalkCorpus, load_cursor,
+                                     save_cursor)
+from repro_torch.ft.coordinator import Coordinator, FTConfig
+gv, cursor, log, total, seed, device = (sys.argv[1], sys.argv[2], sys.argv[3],
+                                        int(sys.argv[4]), int(sys.argv[5]),
+                                        sys.argv[6])
+cc = CorpusConfig(batch=4, seq=16, vocab_size=97, seed=seed)
+start = load_cursor(cursor) or 0
+with Coordinator(FTConfig(handle_signals=True)) as coord:
+    with WalkCorpus(open_graph(gv, device=device), cc).batches(start) as stream:
+        while stream.next_step < total:
+            step, batch = next(stream)
+            h = hashlib.sha256(batch["tokens"].cpu().numpy().tobytes())
+            with open(log, "a") as f:
+                f.write(f"{step} {h.hexdigest()}\n")
+            save_cursor(cursor, stream.next_step)
+            print(step, flush=True)
+            if coord.should_stop():
+                sys.exit(3)                 # preempted: clean cursor exit
+sys.exit(0)
+'''
+
+
+def _child_env():
+    import repro_torch
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def scenario_sigterm_resume(tmp, seed, device):
+    """SIGTERM mid-stream -> durable cursor -> bitwise-stitched resume:
+    a child streams a ``WalkCorpus`` under a signal-handling
+    ``Coordinator``, logging each batch's hash and saving the cursor; it is
+    SIGTERMed after step 2 and must exit 3 at the step boundary; a restart
+    resumes at the cursor, and the stitched log equals the uninterrupted
+    stream's hashes."""
+    from repro_torch.data.corpus import CorpusConfig, WalkCorpus, load_cursor
+    dev = device or "cuda"
+    el, v = _graph(tmp, "sig", seed, scale=7)
+    gv = os.path.join(tmp, "sig.gvel")
+    open_graph(el, num_vertices=v, device=dev).save(gv)
+    cursor = os.path.join(tmp, "cursor")
+    log = os.path.join(tmp, "log")
+    total = 12
+    env = _child_env()
+
+    def spawn():
+        return subprocess.Popen(
+            [sys.executable, "-c", _SIGTERM_CHILD, gv, cursor, log,
+             str(total), str(seed), dev],
+            stdout=subprocess.PIPE, text=True, env=env)
+
+    p = spawn()
+    for line in p.stdout:                   # SIGTERM mid-stream
+        if int(line) >= 2:
+            p.send_signal(signal.SIGTERM)
+            break
+    p.wait(timeout=120)
+    _require(p.returncode == 3,
+             f"expected preempted exit 3, got {p.returncode}")
+    resumed_at = load_cursor(cursor)
+    _require(bool(resumed_at) and resumed_at < total, str(resumed_at))
+    p = spawn()                             # restart resumes at the cursor
+    p.communicate(timeout=300)
+    _require(p.returncode == 0, str(p.returncode))
+
+    with open(log) as f:
+        steps, hashes = zip(*(ln.split() for ln in f))
+    _require([int(s) for s in steps] == list(range(total)), str(steps))
+    corpus = WalkCorpus(open_graph(gv, device=dev),
+                        CorpusConfig(batch=4, seq=16, vocab_size=97,
+                                     seed=seed))
+    for step, h in zip(steps, hashes):      # vs uninterrupted reference
+        want = hashlib.sha256(corpus.batch_at(int(step))["tokens"].cpu()
+                              .numpy().tobytes()).hexdigest()
+        _require(h == want, f"step {step}: {h} != {want}")
+    print(f"chaos[sigterm-resume]: SIGTERM at step {resumed_at - 1}, "
+          f"resume at {resumed_at}, {total}-batch stream bitwise "
+          f"identical OK")
+
+
 def scenario_shard_reexec(tmp, seed, device):
     """Exhausted in-span retries escalate to a re-execution of the shard's
     whole span, bitwise equal to the fault-free sharded load; run in a
     world of :data:`SHARD_WORLD` ranks (:func:`shard_reexec_rank`)."""
-    import repro_torch
     from repro_torch.scripts import local_world
     el, _v = _graph(tmp, "shard", seed)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(
-        repro_torch.__file__)))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = _child_env()
     runs = local_world.spawn(
         [sys.executable, "-m", "repro_torch.scripts.chaos_matrix",
          "--seed", str(seed), "--device", device or "cuda",
@@ -282,6 +368,7 @@ SCENARIOS = {
     "transient-retry": scenario_transient_retry,
     "stuck-reader": scenario_stuck_reader,
     "quarantine-swap": scenario_quarantine_swap,
+    "sigterm-resume": scenario_sigterm_resume,
     "shard-reexec": scenario_shard_reexec,
 }
 

@@ -936,3 +936,92 @@ def test_serving_kind_on_the_card_matches_the_cpu(cuda_device, name):
                 np.testing.assert_allclose(
                     c[k].numpy(), wc[k].numpy(), rtol=tol, atol=tol,
                     err_msg=f"{k} layer {layer} step {step}")
+
+
+# ---- training ---------------------------------------------------------------------
+
+TRAIN_KINDS = ["phi4-mini-3.8b", "mixtral-8x22b", "recurrentgemma-2b",
+               "falcon-mamba-7b", "llama-3.2-vision-11b", "musicgen-large"]
+
+
+@pytest.mark.parametrize("name", TRAIN_KINDS)
+def test_training_step_of_each_kind_on_the_card_matches_the_cpu(cuda_device,
+                                                                name):
+    """One loss's gradients and one training step of each kind's reduced
+    arch on the card against the same f32 weights and batch on the CPU:
+    each leaf's gradient within 5e-2 of its largest magnitude, the loss at
+    2e-3 and the gradient norm at 1e-2 relative, and the params after one
+    AdamW step of lr 1e-3 within 2.5e-3 (Adam's first update is near ``lr
+    * sign(g)``, so an element whose gradient is near 0 may step the other
+    way)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    cfg = reduced_config(name)
+    cpu = init_params(cfg, 3, device="cpu", dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    assert all(p.requires_grad and p.is_cuda for p in card.parameters())
+    batch = synthetic_batch(cfg, 4, 32, 0, device="cpu")
+    grads = []
+    for model, dev in ((card, cuda_device), (cpu, "cpu")):
+        loss_fn(model, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                "full").backward()
+        grads.append({n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    for n, g in grads[1].items():
+        assert float((grads[0][n] - g).abs().max()) <= \
+            5e-2 * float(g.abs().max()), n
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=0,
+                                                decay_steps=100))
+    s_card, m_card = step(init_state(card), batch)
+    s_cpu, m_cpu = step(init_state(cpu), batch)
+    assert s_card.step.is_cuda and int(s_card.step) == 1
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]),
+                               rtol=2e-3)
+    np.testing.assert_allclose(float(m_card["grad_norm"]),
+                               float(m_cpu["grad_norm"]), rtol=1e-2)
+    for a, b in zip(s_card.params.parameters(), s_cpu.params.parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=0, atol=2.5e-3)
+
+
+def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
+    """A state trained on the card, checkpointed, restores bitwise into a
+    state on the CPU and into one on the card."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    cfg = reduced_config("phi4-mini-3.8b")
+
+    def fresh(seed, device):
+        return init_state(init_params(cfg, seed, device=device,
+                                      dtype=torch.float32), compression=True)
+
+    state = fresh(1, cuda_device)
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                decay_steps=50),
+                           compression=True)
+    for i in range(2):
+        state, _ = step(state, synthetic_batch(cfg, 4, 16, i,
+                                               device=cuda_device))
+    ckpt_io.save(state, str(tmp_path), 2, async_=True).join()
+    assert ckpt_io.latest_step(str(tmp_path)) == 2
+    for device in ("cpu", cuda_device):
+        got, at = ckpt_io.restore(fresh(5, device), str(tmp_path))
+        assert at == 2 and int(got.step) == 2
+        mine, want = ckpt_io._flatten(got), ckpt_io._flatten(state)
+        assert sorted(mine) == sorted(want)
+        for k, v in want.items():
+            pairs = [(mine[k][j], v[j]) for j in v] \
+                if isinstance(v, dict) else [(mine[k], v)]
+            for a, b in pairs:
+                assert a.device.type == torch.device(device).type
+                assert torch.equal(a.detach().cpu(), b.detach().cpu()), k

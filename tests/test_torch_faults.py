@@ -577,10 +577,10 @@ def test_chaos_twin_runs_on_the_cpu():
         env=env, capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert [ln.split("]")[0] for ln in lines[:3]] == [
+    assert [ln.split("]")[0] for ln in lines[:4]] == [
         "chaos[transient-retry", "chaos[stuck-reader",
-        "chaos[quarantine-swap"]
-    assert lines[-1] == "chaos matrix: 3 scenario(s) green (seed=3)"
+        "chaos[quarantine-swap", "chaos[sigterm-resume"]
+    assert lines[-1] == "chaos matrix: 4 scenario(s) green (seed=3)"
 
 
 def test_chaos_twin_runs_shard_reexec_in_a_cpu_world():

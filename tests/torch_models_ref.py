@@ -159,6 +159,10 @@ def hold(got, want, tol, how):
 
 
 def _pairs(a, b):
+    if isinstance(a, dict):          # leaves by name (the training tests)
+        for k in a:
+            yield k, a[k], b[k]
+        return
     for (lg, cs), (wlg, wcs) in zip(a, b):
         yield "logits", lg, wlg
         for c, wc in zip(cs, wcs):
@@ -170,7 +174,8 @@ def hold_compiled(got, compiled, op_by_op, how="compiled"):
     """The port against the compiled reference: at each element, ``|port
     - compiled| <= |op_by_op - compiled| + COMPILED_TOL * (1 +
     |compiled|)``, where ``op_by_op`` is the reference's own run op by op.
-    Returns the largest spread of the reference's two runs."""
+    The runs are lists of (logits, per-layer caches), or dicts of leaves
+    by name.  Returns the largest spread of the reference's two runs."""
     assert len(got) == len(compiled) == len(op_by_op)
     spread = 0.0
     for i, ((what, x, c), (_, e, _)) in enumerate(
