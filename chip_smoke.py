@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --parent DIR   # also time DIR's kernels in turns
-    python3 chip_smoke.py --cards 4  # only the sharded load, NCCL, 4 cards
+    python3 chip_smoke.py --cards 4  # the sharded load and data-parallel
+                                     # training over NCCL, 4 cards
 
 Needs one CUDA device of compute capability >= 9.0 and the CUDA toolkit
 (the kernels are built from ``src/repro_torch/csrc`` at first use).  It
@@ -159,6 +160,33 @@ Phases (any failure exits non-zero):
     and replayed (losses within 1e-5), ``accum_steps=2`` against 1 on one
     batch, and ``--compress-grads`` through the entry point carrying a
     nonzero error buffer.  Its numbers are under ``train_lm`` in the JSON;
+3i. (run last, after 3h) data-parallel training, its numbers under
+    ``train_dp`` in the JSON.  (b) First a world of two ranks over gloo,
+    both on this one card (a test of the d > 1 arithmetic, not a
+    deployment), spawned as subprocesses of this script (``--dp-rank``), at
+    the reduced phi4-mini: ``compressed_allreduce`` against its plain
+    single-process version (payloads and result bitwise, within 0.03 and,
+    ``compressed_psum``, 0.01 of the exact sum); the local-accumulation,
+    int8 and ZeRO-1 steps against the single-card step from the same
+    weights (params within the reference tests' bounds, moments within
+    ``CARD_GRAD_TOL`` of each leaf's largest magnitude, loss and gradient
+    norm); each mode's params bitwise equal on both ranks after 3 steps; a
+    ZeRO-1 state saved at step 2, restored and replayed bitwise; the
+    param-shaped state saved at step 3.  Then, in an NCCL world of one in
+    this process: that state ``reshard_restore``d with ``fsdp=True``, every
+    leaf bitwise; and (a) phi4-mini-3.8b at full width and depth (f32
+    master weights from the seed, batch 8 x 128 over walks of the scale-22
+    text, ``accum_steps=2``, ``remat="full"``), the launch counts set to 0
+    just before the text load and read just after (``parse_accumulate``,
+    ``degree_histogram`` and ``exclusive_scan`` must launch), 4 ZeRO-1
+    steps, then 4 int8 steps from a fresh init (step ms, the median of
+    steps 2-3, tokens/s, peak memory, the collectives' calls and bytes in
+    the last step), then step 0 of ``make_train_step`` from the same seed
+    on the same batch against the ZeRO-1 step's (loss within 1e-5, gradient
+    norm within 1e-3, six leaves within rtol 5e-3, atol 5e-5); one state on
+    the card at a time.  ``--cards N`` ends with a world of N ranks over
+    NCCL, one card each, training phi4-mini-3.8b at full width (4 ZeRO-1
+    steps, 4 int8 steps; losses and params equal on every rank);
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1494,8 +1522,9 @@ def run_world(path22, oracle, world, backend):
 def sharded_across_cards(torch, cards: int) -> int:
     """``--cards N``: the sharded load as it is deployed, one rank a card
     over NCCL, in worlds of 1 and of N ranks on the scale-22 text, each
-    rank's rows bitwise against the oracle.  Prints one JSON line and
-    writes ``build/repro_torch/chip_smoke_cards.json``."""
+    rank's rows bitwise against the oracle; then data-parallel training
+    across the N cards (:func:`train_dp_across_cards`).  Prints a JSON
+    line for each and writes ``build/repro_torch/chip_smoke_cards.json``."""
     from repro_torch.core import env
     from repro_torch.kernels import _lib
     require(torch.cuda.device_count() >= cards,
@@ -1509,6 +1538,9 @@ def sharded_across_cards(torch, cards: int) -> int:
         report[f"d{world}"], report[f"d{world}_launches"] = run_world(
             p22, oracle, world, "nccl")
         say(json.dumps({f"nccl_d{world}": report[f"d{world}"]}))
+    del oracle
+    report["train_dp"] = train_dp_across_cards(torch, cards, p22)
+    say(json.dumps({f"train_dp_nccl_d{cards}": report["train_dp"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -2612,6 +2644,539 @@ def phase_train_lm(torch, kernels, text_path, report):
     return {"train_lm: the text load inside training": lc}
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: data-parallel training (int8 collectives, local accumulation,
+# ZeRO-1), its checkpoints and the elastic restore
+# ---------------------------------------------------------------------------
+
+DP_STEPS, DP_ACCUM = 4, 2
+DP_SKIP = 2              # steps left out of the step median (steps 2-3 kept)
+# full width: lr 3e-5 (3h: 1e-3 diverges there) from step 0 (no warm-up),
+# so step 0 moves every parameter and the comparison with make_train_step
+# bites; the reduced checks keep the reference tests' config
+DP_FULL_OC = dict(lr=3e-5, warmup_steps=0, decay_steps=100)
+DP_REDUCED_OC = dict(lr=1e-3, warmup_steps=1, decay_steps=50)
+# step 0 of the ZeRO-1 step at d=1 against make_train_step on the same
+# weights and batch: the same gradients, summed in another order for the
+# norm
+DP_LOSS_RTOL, DP_GNORM_RTOL = 1e-5, 1e-3
+DP_LEAF_TOL = dict(rtol=5e-3, atol=5e-5)
+# d=2 on one card against the single-card step after one step (the
+# reference tests' bounds: tests/test_distributed_loader.py)
+DP_LOCAL_TOL = dict(rtol=3e-3, atol=3e-5)
+DP_ZERO1_TOL = dict(rtol=5e-3, atol=5e-5)
+DP_ALLREDUCE_LEN = 4097              # odd: the padding path
+
+
+def dp_leaves(cfg):
+    """The leaves held at full width (port names): the embedding, the
+    first and last layers' ``wq`` and ``mlp.w_in``, the final norm."""
+    last = cfg.num_layers - 1
+    return ("embed", "layers.0.attn.wq", "layers.0.mlp.w_in",
+            f"layers.{last}.attn.wq", f"layers.{last}.mlp.w_in",
+            "final_norm")
+COLLECTIVES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+               "all_gather", "all_to_all_single", "broadcast")
+
+
+@contextlib.contextmanager
+def collective_bytes(row):
+    """For the block, every ``torch.distributed`` collective of
+    ``COLLECTIVES`` adds its calls and the bytes of the tensor it sends
+    to ``row[name]``."""
+    import torch.distributed as dist
+    reals = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counting(name, real):
+        def call(*args, **kw):
+            sent = args[0] if name in ("all_reduce", "broadcast") else args[1]
+            slot = row.setdefault(name, {"calls": 0, "bytes": 0})
+            slot["calls"] += 1
+            slot["bytes"] += sent.numel() * sent.element_size()
+            return real(*args, **kw)
+        return call
+    for name, real in reals.items():
+        setattr(dist, name, counting(name, real))
+    try:
+        yield row
+    finally:
+        for name, real in reals.items():
+            setattr(dist, name, real)
+
+
+def param_checksum(torch, model):
+    """Two sums over every parameter's bit patterns (plain and weighted by
+    position), as Python ints: equal models give equal sums."""
+    chunk = 1 << 24
+    weights = torch.arange(chunk, dtype=torch.int64,
+                           device=next(model.parameters()).device) % 65521 + 1
+    a = b = 0
+    for k, p in enumerate(model.parameters()):
+        bits = p.detach().reshape(-1).view(torch.int32)
+        for part in bits.split(chunk):
+            w = part.to(torch.int64)
+            a += int(w.sum()) * (k + 1)
+            b += int((w * weights[:w.numel()]).sum())
+    return [a, b]
+
+
+def plain_compressed_allreduce(torch, xs):
+    """The int8 all-reduce of the rows of ``xs`` (one a rank) in one
+    process: each rank's send payload and scale, each segment's summed
+    payload and scale, and the result every rank gets."""
+    from repro_torch.distributed.compression import quantize_int8
+    n = xs.shape[0]
+    flat = xs.reshape(n, -1)
+    pad = (-flat.shape[1]) % n
+    flat = torch.cat([flat, flat.new_zeros(n, pad)], dim=1)
+    sends = [quantize_int8(row.view(n, -1)) for row in flat]
+    sums = []
+    for k in range(n):
+        acc = sends[0][0][k].float() * sends[0][1]
+        for j in range(1, n):
+            acc = acc + sends[j][0][k].float() * sends[j][1]
+        sums.append(quantize_int8(acc))
+    y = torch.cat([q.float() * s for q, s in sums])
+    return sends, sums, (y[:-pad] if pad else y)
+
+
+def dp_step_errs(torch, got, want, tol):
+    """The largest amount by which any element of ``got`` misses ``want``
+    past ``tol`` (<= 0 inside it)."""
+    return max(float(((a.detach() - b.detach()).abs()
+                      - tol["rtol"] * b.detach().abs()).max()) - tol["atol"]
+               for a, b in zip(got.parameters(), want.parameters()))
+
+
+def dp_checks(torch, mesh, rank, world, cfg_row):
+    """One rank of phase 3i's d > 1 world on one card (reduced phi4-mini):
+    the int8 all-reduce against its plain version; the local-accumulation,
+    int8 and ZeRO-1 steps against the single-card step; 3 steps of each,
+    their params' checksums; ZeRO-1 saved at step 2, restored, replayed;
+    the local state saved at step 3 for the parent's elastic restore."""
+    import copy
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import compression
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_train_step,
+                                        make_zero1_local_state,
+                                        reference_leaves)
+    dev = mesh_device(mesh)
+    row = {}
+    g = torch.Generator().manual_seed(SEED)
+    xs = (torch.randn((world, DP_ALLREDUCE_LEN), generator=g)
+          * torch.tensor([1.0, 10.0, 0.1, 3.0][:world])[:, None]).to(dev)
+    seen, real = [], compression.quantize_int8
+
+    def recording(t):
+        q, s = real(t)
+        seen.append((q, s))
+        return q, s
+    compression.quantize_int8 = recording
+    try:
+        y = compression.compressed_allreduce(xs[rank], mesh, "data")
+    finally:
+        compression.quantize_int8 = real
+    y2 = compression.compressed_psum(xs[rank], mesh, "data")
+    sends, sums, want_y = plain_compressed_allreduce(torch, xs)
+    (q1, s1), (q2, s2) = seen
+    exact = xs.sum(0)
+    scale = float(exact.abs().max())
+    row["allreduce"] = {
+        "payloads_bitwise": bool(
+            torch.equal(q1, sends[rank][0]) and torch.equal(s1, sends[rank][1])
+            and torch.equal(q2, sums[rank][0])
+            and torch.equal(s2, sums[rank][1])),
+        "result_bitwise": bool(torch.equal(y, want_y)),
+        "err": float((y - exact).abs().max()) / scale,
+        "psum_err": float((y2 - exact).abs().max()) / scale}
+
+    cfg = reduced_config(TRAIN_ARCH)
+    oc = OptimizerConfig(**DP_REDUCED_OC)
+    batch = synthetic_batch(cfg, 8, 32, 0, device=dev)
+    base = init_params(cfg, SEED, device=dev, dtype=torch.float32)
+    single = make_train_step(cfg, oc, accum_steps=DP_ACCUM)
+    s_one, m_one = single(init_state(copy.deepcopy(base)), batch)
+    want_flat = {path: torch.cat([s_one.mu[n].reshape(-1) for n, _ in members])
+                 for path, members in reference_leaves(s_one.params).items()}
+    for mode, tol in (("local", DP_LOCAL_TOL), ("int8", None),
+                      ("zero1", DP_ZERO1_TOL)):
+        model = copy.deepcopy(base)
+        state = make_zero1_local_state(model, world, mesh=mesh) \
+            if mode == "zero1" else init_state(model)
+        step = make_local_accum_train_step(
+            cfg, oc, mesh, accum_steps=DP_ACCUM, zero1=mode == "zero1",
+            int8_allreduce=mode == "int8")
+        state, m = step(state, batch)
+        r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "single_loss": float(m_one["loss"]),
+             "single_grad_norm": float(m_one["grad_norm"])}
+        if tol is not None:
+            r["params_past_tol"] = dp_step_errs(torch, state.params,
+                                                s_one.params, tol)
+        if mode == "local":
+            r["mu_err"] = max(float((state.mu[n] - s_one.mu[n]).abs().max()
+                                    / s_one.mu[n].abs().max())
+                              for n in s_one.mu)
+        if mode == "zero1":
+            errs = []
+            for path, want in want_flat.items():
+                mine = state.mu[path].to_local()[0]
+                c = mine.numel()
+                part = want[rank * c:(rank + 1) * c]
+                errs.append(float((mine[:part.numel()] - part).abs().max()
+                                  / want.abs().max()))
+            r["mu_err"] = max(errs)
+            r["mu_rows"] = {k: list(v.shape) for k, v in state.mu.items()}
+        state, _ = step(state, batch)
+        if mode == "zero1":
+            ckpt = os.path.join(cfg_row["out"], "zero1")
+            ckpt_io.save(state, ckpt, 2)
+        state, _ = step(state, batch)
+        r["checksum"] = param_checksum(torch, state.params)
+        if mode == "zero1":
+            again = make_zero1_local_state(
+                init_params(cfg, SEED + 1, device=dev, dtype=torch.float32),
+                world, mesh=mesh)
+            again, at = ckpt_io.restore(again, ckpt)
+            again, _ = step(again, batch)
+            r["replayed_bitwise"] = bool(
+                at == 2 and all(torch.equal(a, b) for a, b in zip(
+                    again.params.parameters(), state.params.parameters()))
+                and all(torch.equal(again.mu[k].to_local(),
+                                    state.mu[k].to_local())
+                        for k in state.mu))
+        if mode == "local":
+            ckpt_io.save(state, os.path.join(cfg_row["out"], "param_state"), 3)
+        row[mode] = r
+        del state, model
+    return row
+
+
+def dp_cards(torch, kernels, mesh, rank, world, cfg_row):
+    """One rank of ``--cards N``'s training world: phi4-mini-3.8b at full
+    width over NCCL, one card a rank, on walks over the scale-22 text
+    (loaded by each rank, its launches counted); 4 ZeRO-1 steps and 4 int8
+    steps from the seed's weights (broadcast from rank 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import graph_walk_source
+    from repro_torch.distributed.collectives import mesh_device
+    dev = mesh_device(mesh)
+    cfg = get_config(TRAIN_ARCH)
+    source = graph_walk_source(cfg_row["path"], cfg, TRAIN_BATCH, TRAIN_SEQ,
+                               device=dev)
+    batches, load_s, lc = counted(
+        torch, kernels, lambda: [source(i) for i in range(DP_STEPS)])
+    need(lc, LOAD_KERNELS, f"train_dp d={world} rank {rank}: the text load")
+    row = {"text_and_batches_s": load_s, "launches": lc}
+    for mode in ("zero1", "int8"):
+        row[mode] = dp_run(torch, cfg, mesh, world, mode, batches,
+                           broadcast=True)
+    del batches, source
+    return row
+
+
+def dp_run(torch, cfg, mesh, world, mode, batches, broadcast=False,
+           capture=None):
+    """``DP_STEPS`` steps of the data-parallel step in ``mode`` (``zero1``
+    or ``int8``) at ``cfg`` from the seed's weights: losses, step ms, the
+    median of steps 2-3, tokens/s, peak memory, the moments' bytes on this
+    rank, the collectives' calls and bytes a step, the params' checksum.
+    ``capture``: host copies of ``dp_leaves(cfg)`` after step 0 go
+    there."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_zero1_local_state)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, SEED, device=mesh_device(mesh),
+                        dtype=torch.float32)
+    if broadcast:
+        for p in model.parameters():
+            dist.broadcast(p.detach(), src=0)
+    state = make_zero1_local_state(model, world, mesh=mesh) \
+        if mode == "zero1" else init_state(model)
+    moments = sum((t.to_local() if hasattr(t, "to_local") else t).numel() * 4
+                  for t in list(state.mu.values()) + list(state.nu.values()))
+    step = make_local_accum_train_step(
+        cfg, OptimizerConfig(**DP_FULL_OC), mesh, remat_policy="full",
+        accum_steps=DP_ACCUM, zero1=mode == "zero1",
+        int8_allreduce=mode == "int8")
+    losses, norms, ms, coll = [], [], [], {}
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == DP_STEPS - 1:
+            with collective_bytes(coll):
+                state, m = step(state, batches[i])
+                loss = float(m["loss"])
+        else:
+            state, m = step(state, batches[i])
+            loss = float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        norms.append(float(m["grad_norm"]))
+        if i == 0 and capture is not None:
+            named = dict(state.params.named_parameters())
+            capture.update({n: named[n].detach().to("cpu", copy=True)
+                            for n in dp_leaves(cfg)},
+                           loss=loss, grad_norm=norms[0])
+    med = spread(ms[DP_SKIP:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+           "step_ms_steps_2_3": med, "tokens_per_s": tokens / (med["p50"]
+                                                               / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "moment_bytes_this_rank": moments,
+           "collectives_last_step": coll,
+           "checksum": param_checksum(torch, state.params)}
+    require(all(np.isfinite(losses)), f"train_dp {mode} d={world}: finite "
+            f"losses ({losses})")
+    del state, model, step
+    free_card(torch)
+    return row
+
+
+def dp_rank(cfg_path) -> int:
+    """One rank of a phase-3i world (``--dp-rank``): ``dp_checks`` over
+    gloo on one card, or ``dp_cards`` over NCCL, one card a rank."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.scripts import local_world
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(int(os.environ["RANK"])
+                          % torch.cuda.device_count())
+    world = int(os.environ["WORLD_SIZE"])
+    mesh, rank, world = local_world.join(cfg["backend"], "cuda", (world, 1),
+                                         ("data", "model"))
+    try:
+        if cfg["mode"] == "check":
+            row = dp_checks(torch, mesh, rank, world, cfg)
+        else:
+            row = dp_cards(torch, kernels, mesh, rank, world, cfg)
+    finally:
+        local_world.leave()
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    return 0
+
+
+def dp_world(mode, world, backend, path=None):
+    """A world of ``world`` ranks of this script (:func:`dp_rank`); returns
+    ``(wall seconds, every rank's row, its directory)``."""
+    from repro_torch.scripts import local_world
+    out = os.path.join(OUT, f"dp_{mode}{world}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = os.path.join(out, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"mode": mode, "backend": backend, "out": out,
+                   "path": path}, f)
+    t0 = time.perf_counter()
+    runs = local_world.spawn([sys.executable, os.path.abspath(__file__),
+                              "--dp-rank", cfg], world, timeout=600,
+                             workdir=out)
+    wall = time.perf_counter() - t0
+    rows = []
+    for k, run in enumerate(runs):
+        require(run.returncode == 0, f"train_dp {mode} d={world} over "
+                f"{backend}: rank {k} exited {run.returncode}:\n"
+                f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+        with open(os.path.join(out, f"rank{k}.json")) as f:
+            rows.append(json.load(f))
+    return wall, rows, out
+
+
+def check_d2(rows):
+    """Phase 3i (b)'s requirements over its two ranks' rows."""
+    for k, r in enumerate(rows):
+        ar = r["allreduce"]
+        require(ar["payloads_bitwise"] and ar["result_bitwise"],
+                f"train_dp d=2 rank {k}: compressed_allreduce's payloads and "
+                f"result equal its plain version's bitwise")
+        require(ar["err"] < 0.03 and ar["psum_err"] < 0.01,
+                f"train_dp d=2 rank {k}: int8 sums within 0.03 / 0.01 of the "
+                f"exact sum ({ar['err']}, {ar['psum_err']})")
+        for mode in ("local", "int8", "zero1"):
+            m = r[mode]
+            require(abs(m["loss"] - m["single_loss"])
+                    <= CARD_LOSS_RTOL * abs(m["single_loss"])
+                    and abs(m["grad_norm"] - m["single_grad_norm"])
+                    <= CARD_GNORM_RTOL * m["single_grad_norm"],
+                    f"train_dp d=2 rank {k} {mode}: loss and grad norm "
+                    f"against the single-card step ({m})")
+            if mode != "int8":
+                require(m["params_past_tol"] <= 0 and
+                        m["mu_err"] <= CARD_GRAD_TOL,
+                        f"train_dp d=2 rank {k} {mode}: params and moments "
+                        f"against the single-card step ({m})")
+        require(r["zero1"]["replayed_bitwise"], f"train_dp d=2 rank {k}: "
+                f"ZeRO-1 saved at step 2, restored and replayed bitwise")
+    for mode in ("local", "int8", "zero1"):
+        require(rows[0][mode]["checksum"] == rows[1][mode]["checksum"],
+                f"train_dp d=2 {mode}: params bitwise equal on both ranks "
+                f"after 3 steps")
+
+
+def dp_reshard_into_one(torch, cfg, mesh, directory):
+    """The d=2 param-shaped state restored into this world of one with
+    ``fsdp=True``: every leaf's ``full_tensor()`` equals the saved one."""
+    from repro_torch.checkpoint.reshard import reshard_restore
+    from repro_torch.models.transformer import reference_paths
+    from repro_torch.train.state import abstract_state
+    state, at = reshard_restore(abstract_state(cfg), directory, cfg, mesh,
+                                fsdp=True)
+    paths = reference_paths(state.params)
+    d = os.path.join(directory, f"step_{at:08d}")
+    checked = 0
+    for idx, tree in (("1", dict(state.params.named_parameters())),
+                      ("2", state.mu), ("3", state.nu)):
+        for name, t in tree.items():
+            path, j = paths[name]
+            saved = np.load(os.path.join(d, f"{idx}.{path}.npy"))
+            saved = saved if j is None else saved[j]
+            require(np.array_equal(t.detach().full_tensor().cpu().numpy(), saved),
+                    f"train_dp reshard: {idx}.{name} bitwise")
+            checked += 1
+    require(int(state.step) == at == 3 and all(
+        hasattr(p, "to_local") for p in state.params.parameters()),
+        "train_dp reshard: step 3, DTensor parameters")
+    return {"leaves": checked, "step": at}
+
+
+def dp_full_width(torch, kernels, mesh, text_path, row):
+    """Phase 3i (a), in this process's NCCL world of one: the text load
+    for the walk batches (launches counted), 4 ZeRO-1 steps, 4 int8 steps,
+    then step 0 of ``make_train_step`` from the same seed on the same
+    batch against the ZeRO-1 step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import graph_walk_source
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    dev = mesh_device(mesh)
+    source = graph_walk_source(text_path, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                               device=dev)
+    batches, row["text_and_batches_s"], lc = counted(
+        torch, kernels, lambda: [source(i) for i in range(DP_STEPS)])
+    need(lc, LOAD_KERNELS, "train_dp d=1: the text load for the walks")
+    row.update(arch=TRAIN_ARCH, layers=cfg.num_layers, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, accum_steps=DP_ACCUM, remat="full",
+               optimizer=DP_FULL_OC, reduced=None, launches=lc)
+    captured = {}
+    row["zero1"] = dp_run(torch, cfg, mesh, 1, "zero1", batches,
+                          capture=captured)
+    say(json.dumps({"train_dp_zero1": row["zero1"]}))
+    row["int8"] = dp_run(torch, cfg, mesh, 1, "int8", batches)
+    say(json.dumps({"train_dp_int8": row["int8"]}))
+    ln_v = float(np.log(cfg.vocab_size))
+    require(abs(row["zero1"]["losses"][0] - ln_v) < 2.0,
+            f"train_dp: step 0's loss near ln V = {ln_v}")
+
+    state = init_state(init_params(cfg, SEED, device=dev,
+                                   dtype=torch.float32))
+    step = make_train_step(cfg, OptimizerConfig(**DP_FULL_OC),
+                           remat_policy="full", accum_steps=DP_ACCUM)
+    state, m = step(state, batches[0])
+    named = dict(state.params.named_parameters())
+    want = {n: named[n].detach().to("cpu", copy=True)
+            for n in dp_leaves(cfg)}
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    del state, step, named, batches, source
+    free_card(torch)
+    errs = {}
+    for n in dp_leaves(cfg):
+        a, b = captured[n], want[n]
+        errs[n] = float(((a - b).abs() - DP_LEAF_TOL["rtol"] * b.abs()).max()
+                        - DP_LEAF_TOL["atol"])
+        require(errs[n] <= 0, f"train_dp: ZeRO-1's step 0 {n} within "
+                f"{DP_LEAF_TOL} of make_train_step's (past it by {errs[n]})")
+    require(abs(captured["loss"] - loss) <= DP_LOSS_RTOL * abs(loss)
+            and abs(captured["grad_norm"] - gnorm) <= DP_GNORM_RTOL * gnorm,
+            f"train_dp: ZeRO-1's step 0 loss {captured['loss']} / grad norm "
+            f"{captured['grad_norm']} against make_train_step's {loss} / "
+            f"{gnorm}")
+    row["against_make_train_step"] = {
+        "loss": captured["loss"], "want_loss": loss,
+        "grad_norm": captured["grad_norm"], "want_grad_norm": gnorm,
+        "leaves_past_tol": errs, "tol": {"loss_rtol": DP_LOSS_RTOL,
+                                         "grad_norm_rtol": DP_GNORM_RTOL,
+                                         **DP_LEAF_TOL}}
+    return lc
+
+
+def phase_train_dp(torch, kernels, text_path, report):
+    """Data-parallel training on the card (phase 3i): (b) a world of two
+    ranks over gloo on this one card at the reduced phi4-mini, then, in an
+    NCCL world of one in this process, the elastic restore of (b)'s state
+    and (a) phi4-mini-3.8b at full width and depth.  Returns the loader's
+    launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    free_card(torch)
+    row = {}
+    report["train_dp"] = row            # kept whole if a check fails
+    wall, rows, out = dp_world("check", 2, "gloo")
+    check_d2(rows)
+    row["d2_on_one_card"] = {"what": "a test of the d > 1 arithmetic on one "
+                             "card over gloo, not a deployment",
+                             "world_s": wall, "ranks": rows}
+    say(json.dumps({"train_dp_d2": row["d2_on_one_card"]}))
+
+    init = os.path.join(OUT, "dp1.rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        row["reshard_d2_to_d1"] = dp_reshard_into_one(
+            torch, reduced_config(TRAIN_ARCH), mesh,
+            os.path.join(out, "param_state"))
+        shutil.rmtree(out, ignore_errors=True)
+        lc = dp_full_width(torch, kernels, mesh, text_path, row)
+    finally:
+        dist.destroy_process_group()
+    row["phase_s"] = time.perf_counter() - t_phase
+    say(json.dumps({"train_dp": {k: v for k, v in row.items()
+                                 if k != "d2_on_one_card"}}))
+    say("phase 3i: data-parallel training (d=2 over gloo on one card, "
+        "d=1 over NCCL at full width) checks out on the card")
+    return {"train_dp: the text load for the walks": lc}
+
+
+def train_dp_across_cards(torch, cards, path22):
+    """``--cards N``'s training world: N ranks over NCCL, one card each,
+    phi4-mini-3.8b at full width; losses equal on every rank, the params'
+    checksums equal after the steps."""
+    wall, rows, out = dp_world("cards", cards, "nccl", path22)
+    shutil.rmtree(out, ignore_errors=True)
+    for mode in ("zero1", "int8"):
+        require(all(r[mode]["losses"] == rows[0][mode]["losses"]
+                    for r in rows), f"--cards {cards} {mode}: the losses "
+                f"equal on every rank")
+        require(all(r[mode]["checksum"] == rows[0][mode]["checksum"]
+                    for r in rows), f"--cards {cards} {mode}: the params "
+                f"equal on every rank after {DP_STEPS} steps")
+    return {"world_s": wall, "ranks": rows}
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -3061,8 +3626,10 @@ def main() -> int:
                          "time in turns with these")
     ap.add_argument("--cards", type=int, metavar="N",
                     help="only the sharded load, over NCCL: worlds of 1 "
-                         "and N ranks, one card each (needs N cards)")
+                         "and N ranks, one card each, then data-parallel "
+                         "training across the N cards (needs N cards)")
     ap.add_argument("--shard-rank", metavar="CFG", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3074,6 +3641,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     if args.shard_rank:                  # a rank of phase 3e's world
         return shard_rank(args.shard_rank)
+    if args.dp_rank:                     # a rank of a phase-3i world
+        return dp_rank(args.dp_rank)
     if args.cards:
         return sharded_across_cards(torch, args.cards)
     import repro_torch
@@ -3159,6 +3728,7 @@ def main() -> int:
                                      report))
     os.remove(served_snap)
     by_path.update(phase_train_lm(torch, kernels, p22, report))
+    by_path.update(phase_train_dp(torch, kernels, p22, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

@@ -1,2 +1,3 @@
-"""Gradient compression, the single-device half of
-``repro/distributed/compression.py``."""
+"""Data-parallel collectives and the sharding rules: the port of
+``repro/distributed`` (``compression``, ``sharding``; ``collectives``
+holds the reduce-scatter both backends run)."""

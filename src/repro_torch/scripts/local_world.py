@@ -1,12 +1,13 @@
 """A ``torch.distributed`` world of processes on one host, for the sharded
-load's checks (the chaos twin's ``shard-reexec``, the CPU parity tests and
-``chip_smoke.py``'s two-rank phase).
+load's and the data-parallel step's checks (the chaos twin's
+``shard-reexec``, the CPU parity tests and ``chip_smoke.py``'s two-rank
+phases).
 
 :func:`spawn` runs one command as ``world`` processes, passing each its
 rank the way ``torchrun`` does (``RANK``, ``WORLD_SIZE``) and a rendezvous
 file (``REPRO_WORLD_INIT``): a ``file://`` store needs no TCP port, so
 worlds started side by side (test workers) cannot collide.  A rank calls
-:func:`join` for its one-axis ``DeviceMesh`` and :func:`leave` at the end.
+:func:`join` for its ``DeviceMesh`` and :func:`leave` at the end.
 """
 from __future__ import annotations
 
@@ -61,19 +62,21 @@ def _read(path: str) -> str:
         return f.read()
 
 
-def join(backend: str, device_type: str):
+def join(backend: str, device_type: str, shape: Optional[Sequence[int]] = None,
+         names: Sequence[str] = ("data",)):
     """This process's rank of the world :func:`spawn` started: the default
     process group (``backend``: ``"gloo"`` or ``"nccl"``) and a
-    ``DeviceMesh`` of ``device_type`` over every rank, on one axis named
-    ``"data"``.  Returns ``(mesh, rank, world)``."""
+    ``DeviceMesh`` of ``device_type`` over every rank, of ``shape`` (one
+    axis of every rank by default) with axes ``names``.  Returns ``(mesh,
+    rank, world)``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     dist.init_process_group(backend, init_method=f"file://"
                             f"{os.environ[INIT_ENV]}", rank=rank,
                             world_size=world)
-    mesh = init_device_mesh(device_type, (world,),
-                            mesh_dim_names=("data",))
+    mesh = init_device_mesh(device_type, tuple(shape or (world,)),
+                            mesh_dim_names=tuple(names))
     return mesh, rank, world
 
 

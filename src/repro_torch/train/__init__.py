@@ -1,2 +1,3 @@
-"""Single-card training for the port: ``state``, ``optimizer``, ``step``
-and ``loop``, the counterparts of ``repro/train``."""
+"""Training for the port, on one card or data-parallel across ranks:
+``state``, ``optimizer``, ``step`` and ``loop``, the counterparts of
+``repro/train``."""

@@ -1,6 +1,6 @@
 """AdamW with a cosine schedule and global-norm clipping; the port of
-``repro/train/optimizer.py`` (its ZeRO-1 layout waits for the
-multi-device slice).
+``repro/train/optimizer.py`` (ZeRO-1's sharded Adam, on flat moments, is
+in ``train/step.py``).
 
 The formulas and their order of operations are the reference's.  The
 clip and the update run leaf by leaf and in place (``mul_``, ``add_``,

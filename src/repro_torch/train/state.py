@@ -4,7 +4,9 @@ The reference's pytree leaves are, here, a model and dicts keyed by its
 parameter names (``model.named_parameters()``): ``mu``/``nu`` are Adam's
 moments and ``error`` the gradient compression's error feedback, each a
 tensor of its parameter's shape.  ``checkpoint/io.py`` lays them out as
-the reference's stacked leaves on disk.
+the reference's stacked leaves on disk.  A ZeRO-1 state
+(``train.step.make_zero1_local_state``) keys its flat moments by the
+reference's leaf paths instead.
 """
 from __future__ import annotations
 
@@ -40,3 +42,11 @@ def init_state(model: torch.nn.Module, *,
     err = zeros_like_params(model, torch.float32) if compression else None
     return TrainState(step, model, zeros_like_params(model),
                       zeros_like_params(model), err)
+
+
+def abstract_state(cfg, *, compression: bool = False) -> TrainState:
+    """:func:`init_state` of an f32 model of ``cfg`` on the ``meta``
+    device: every shape and dtype, no storage."""
+    from ..models.transformer import Transformer
+    return init_state(Transformer(cfg, device="meta", dtype=torch.float32),
+                      compression=compression)

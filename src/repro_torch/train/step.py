@@ -1,22 +1,71 @@
-"""train_step factory: loss -> grads -> clip -> (optional compression) ->
-AdamW; the single-card half of ``repro/train/step.py`` (its shard_map
-``make_local_accum_train_step`` waits for the multi-device slice).
+"""train_step factories: loss -> grads -> clip -> (optional compression) ->
+AdamW; the port of ``repro/train/step.py``.
 
 Gradients come from ``loss.backward()`` into each parameter's ``.grad``
 (f32).  With ``accum_steps > 1`` the batch splits into ``(accum,
 B/accum)`` as the reference's does, each microbatch's backward adds its
 gradients to the last (the reference's running sum), and the summed loss
 and gradients are scaled by ``1/accum``.
+
+:func:`make_train_step` is the single-card step.
+:func:`make_local_accum_train_step` is the reference's shard_map step
+over the data axes of a ``DeviceMesh``: every rank takes the global batch,
+computes on its rows of dim 0, accumulates its raw gradients over the
+microbatches and reduces once a step (an f32 all-reduce, or the int8
+``compressed_allreduce``); with ``zero1`` it reduce-scatters instead, runs
+Adam on its ``1/n`` shard against the flat moments of
+:func:`make_zero1_local_state` and all-gathers the update.
+
+The reference's leaf is the stacked one (``models.transformer.
+reference_paths``): a ZeRO-1 shard of ``seg0.sub0.mlp.w_in`` spans layer
+boundaries, and the int8 scale is one per stacked leaf.  So both gather a
+leaf's per-layer gradients into one flat buffer in stacked order (each
+layer's ``.grad`` freed as it is copied) before they quantize or scatter.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, List, Optional, Tuple
 
-from ..distributed.compression import compress_with_feedback
-from ..models.transformer import loss_fn
+import torch
+import torch.distributed as dist
+
+from ..distributed.collectives import (all_gather_flat, axis_group,
+                                       mesh_device, reduce_scatter)
+from ..distributed.compression import compress_with_feedback, int8_allreduce_
+from ..distributed.sharding import mesh_axes
+from ..models.transformer import loss_fn, reference_paths, stacked_rank
 from .optimizer import (OptimizerConfig, adamw_update, clip_by_global_norm,
-                        make_scratch)
+                        make_scratch, schedule)
 from .state import TrainState
+
+F32 = torch.float32
+TP_SLICE = ("tensor parallelism waits for the port's tensor-parallel slice "
+            "(tp through the models, padded heads and a model-axis forward)")
+
+
+def _backward(model, batch, cfg, remat_policy, accum_steps: int):
+    """The loss summed over ``accum_steps`` microbatches of ``batch``
+    (detached), with the summed gradients in each parameter's ``.grad``."""
+    model.zero_grad(set_to_none=True)
+    if accum_steps == 1:
+        loss = loss_fn(model, batch, cfg, remat_policy)
+        loss.backward()
+        return loss.detach()
+    b = next(iter(batch.values())).shape[0]
+    if b % accum_steps:
+        raise ValueError(f"batch {b} does not split into "
+                         f"{accum_steps} microbatches")
+    micro = {k: v.reshape((accum_steps, b // accum_steps)
+                          + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    loss = None
+    for i in range(accum_steps):
+        li = loss_fn(model, {k: v[i] for k, v in micro.items()}, cfg,
+                     remat_policy)
+        li.backward()
+        loss = li.detach() if loss is None else loss + li.detach()
+    return loss
 
 
 def make_train_step(cfg, oc: OptimizerConfig, *,
@@ -27,37 +76,17 @@ def make_train_step(cfg, oc: OptimizerConfig, *,
     advances; ``metrics`` holds ``loss``, ``grad_norm`` (before the clip)
     and ``lr``, f32 scalars on the model's device."""
 
-    def grads_of(model, batch):
-        model.zero_grad(set_to_none=True)
-        if accum_steps == 1:
-            loss = loss_fn(model, batch, cfg, remat_policy)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            b = next(iter(batch.values())).shape[0]
-            if b % accum_steps:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{accum_steps} microbatches")
-            micro = {k: v.reshape((accum_steps, b // accum_steps)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            loss = None
-            for i in range(accum_steps):
-                li = loss_fn(model, {k: v[i] for k, v in micro.items()},
-                             cfg, remat_policy)
-                li.backward()
-                loss = li.detach() if loss is None else loss + li.detach()
-            inv = 1.0 / accum_steps
-            loss = loss * inv
-            for p in model.parameters():
-                p.grad.mul_(inv)
-        return loss, {n: p.grad for n, p in model.named_parameters()}
-
     def train_step(state: TrainState, batch):
         model = state.params
         dev = state.step.device
         batch = {k: v.to(dev) for k, v in batch.items()}
-        loss, grads = grads_of(model, batch)
+        loss = _backward(model, batch, cfg, remat_policy, accum_steps)
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            loss = loss * inv
+            for p in model.parameters():
+                p.grad.mul_(inv)
+        grads = {n: p.grad for n, p in model.named_parameters()}
         scratch = make_scratch(grads.values())
         grads, gnorm = clip_by_global_norm(grads, oc.clip_norm, scratch)
         error = state.error
@@ -72,3 +101,252 @@ def make_train_step(cfg, oc: OptimizerConfig, *,
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+# ---- the reference's leaves ----------------------------------------------------
+
+Members = List[Tuple[str, torch.Tensor]]
+
+
+def reference_leaves(model) -> Dict[str, Members]:
+    """Each leaf of the reference's params pytree, in its flatten order
+    (sorted paths) -> its ``(name, parameter)`` members in stacked
+    order."""
+    paths = reference_paths(model)
+    found: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        path, j = paths[name]
+        found.setdefault(path, []).append((0 if j is None else j, name, p))
+    return {path: [(n, p) for _, n, p in sorted(found[path],
+                                                key=lambda t: t[0])]
+            for path in sorted(found)}
+
+
+def _flat_grads(members: Members, size: int) -> torch.Tensor:
+    """The members' gradients in stacked order in one f32 buffer of
+    ``size`` (zero past their end); each ``.grad`` is freed once it is
+    copied."""
+    p0 = members[0][1]
+    flat = torch.empty(size, dtype=F32, device=p0.device)
+    off = 0
+    for _, p in members:
+        k = p.numel()
+        flat[off:off + k].copy_(p.grad.reshape(-1))
+        p.grad = None
+        off += k
+    flat[off:].zero_()
+    return flat
+
+
+def _leaf_size(members: Members) -> int:
+    return sum(p.numel() for _, p in members)
+
+
+# ---- the data-parallel step ----------------------------------------------------
+
+def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
+                                remat_policy: Optional[str] = "full",
+                                accum_steps: int = 1,
+                                int8_allreduce: bool = False,
+                                zero1: bool = False,
+                                batch_axes=("data",)):
+    """Returns ``train_step(state, batch) -> (state, metrics)`` for this
+    rank of ``mesh``: one gradient reduction a step over the mesh's
+    ``batch_axes`` (module docstring).  ``batch`` is the global batch;
+    the rank's rows of dim 0 are its shard (the first axis major).  The
+    parameters stay replicated, bitwise equal on every rank.  With
+    ``zero1`` (one data axis) the state's moments are those of
+    :func:`make_zero1_local_state`.  ``metrics``: the loss averaged over
+    the ranks, the gradient norm before the clip, the learning rate."""
+    axes = mesh_axes(mesh)
+    if axes.get("model", 1) > 1:
+        raise NotImplementedError(f"a mesh with a 'model' axis of "
+                                  f"{axes['model']}: {TP_SLICE}")
+    manual = tuple(a for a in batch_axes if a in axes)
+    if not manual:
+        raise ValueError(f"the mesh {tuple(axes)} has none of the batch "
+                         f"axes {tuple(batch_axes)}")
+    if zero1 and len(manual) != 1:
+        raise NotImplementedError("zero1 local step: single DP axis for now")
+    groups = [axis_group(mesh, a) for a in manual]
+    n = math.prod(size for _, size, _ in groups)
+    shard = 0
+    for _, size, k in groups:
+        shard = shard * size + k
+    group0, n0, k0 = groups[0]
+
+    def pmean(x):
+        for g, size, _ in groups:
+            dist.all_reduce(x, group=g)
+            x = x / size
+        return x
+
+    def reduce_replicated(model, inv):
+        """The f32 all-reduce (or the int8 one) of every gradient, scaled
+        by ``inv / n`` first; the reduced gradients by parameter name."""
+        if not int8_allreduce:
+            for p in model.parameters():
+                p.grad.mul_(inv / n)
+                for g, _, _ in groups:
+                    dist.all_reduce(p.grad, group=g)
+            return {name: p.grad for name, p in model.named_parameters()}
+        for path, members in reference_leaves(model).items():
+            size = _leaf_size(members)
+            padded = [-(-size // d) * d for _, d, _ in groups]
+            flat = _flat_grads(members, max(padded)).mul_(inv / n)
+            for (g, _, _), length in zip(groups, padded):
+                int8_allreduce_(flat[:length], g)    # padded to its own n
+            off = 0
+            for _, p in members:
+                p.grad = flat[off:off + p.numel()].view(p.shape)
+                off += p.numel()
+            del flat
+        return {name: p.grad for name, p in model.named_parameters()}
+
+    def zero1_update(state, inv):
+        """Reduce-scatter, clip and Adam on this rank's shard of each
+        leaf, then all-gather the updated shard into the parameters.
+        Returns ``(grad_norm, lr)``."""
+        model = state.params
+        leaves = reference_leaves(model)
+        gshard = {}
+        for path, members in leaves.items():
+            c = -(-_leaf_size(members) // n0)
+            flat = _flat_grads(members, n0 * c).mul_(inv)
+            out = torch.empty(c, dtype=F32, device=flat.device)
+            reduce_scatter(out, flat, group0)
+            del flat
+            gshard[path] = out.div_(n0)
+        sq = sum(torch.sum(g * g) for g in gshard.values())
+        dist.all_reduce(sq, group=group0)
+        gnorm = torch.sqrt(sq)
+        scale = torch.clamp(torch.div(gnorm.new_tensor(oc.clip_norm),
+                                      torch.clamp_min(gnorm, 1e-12)), max=1.0)
+        lr = schedule(state.step, oc)
+        t = state.step.to(F32) + 1.0
+        bc1 = 1.0 - oc.b1 ** t
+        bc2 = 1.0 - oc.b2 ** t
+        for path, members in leaves.items():
+            g = gshard.pop(path).mul_(scale)
+            m, v = _local_row(state.mu[path], k0), _local_row(state.nu[path],
+                                                               k0)
+            if m.numel() != g.numel():
+                raise ValueError(f"zero1 moments of {path} hold {m.numel()} "
+                                 f"elements a rank, its gradient shard "
+                                 f"{g.numel()}")
+            c = g.numel()
+            m.mul_(oc.b1).add_(g, alpha=1 - oc.b1)
+            v.mul_(oc.b2).addcmul_(g, g, value=1 - oc.b2)
+            gathered = torch.empty(n0 * c, dtype=F32, device=g.device)
+            pshard = gathered[k0 * c:(k0 + 1) * c]
+            _copy_span(members, k0 * c, pshard)
+            s = torch.div(v, bc2).sqrt_().add_(oc.eps)
+            u = torch.div(m, bc1, out=g).div_(s)
+            del s
+            if stacked_rank(*members[0]) >= 2:
+                u.add_(pshard, alpha=oc.weight_decay)
+            pshard.sub_(u.mul_(lr))
+            del g, u
+            all_gather_flat(gathered, pshard, group0)
+            off = 0
+            for _, p in members:
+                p.copy_(gathered[off:off + p.numel()].view(p.shape))
+                off += p.numel()
+            del gathered, pshard
+        return gnorm, lr
+
+    def train_step(state: TrainState, batch):
+        model = state.params
+        dev = state.step.device
+        b = next(iter(batch.values())).shape[0]
+        if b % n:
+            raise ValueError(f"global batch {b} does not split over "
+                             f"{n} data-parallel ranks")
+        rows = slice(shard * (b // n), (shard + 1) * (b // n))
+        mine = {k: v[rows].to(dev) for k, v in batch.items()}
+        loss = _backward(model, mine, cfg, remat_policy, accum_steps)
+        inv = 1.0 / accum_steps
+        loss = pmean(loss * inv)
+        with torch.no_grad():
+            if zero1:
+                gnorm, lr = zero1_update(state, inv)
+                mu, nu = state.mu, state.nu
+            else:
+                grads = reduce_replicated(model, inv)
+                scratch = make_scratch(grads.values())
+                grads, gnorm = clip_by_global_norm(grads, oc.clip_norm,
+                                                   scratch)
+                _, mu, nu, lr = adamw_update(
+                    dict(model.named_parameters()), grads, state.mu,
+                    state.nu, state.step, oc, scratch)
+                del grads, scratch
+        model.zero_grad(set_to_none=True)
+        new_state = TrainState(state.step + 1, model, mu, nu, state.error)
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return train_step
+
+
+def _local_row(t: torch.Tensor, k: int) -> torch.Tensor:
+    """This rank's row of a ZeRO-1 moment: a ``DTensor``'s local row, or
+    row ``k`` of a whole tensor."""
+    to_local = getattr(t, "to_local", None)
+    return to_local()[0] if to_local is not None else t[k]
+
+
+def _copy_span(members: Members, start: int, out: torch.Tensor) -> None:
+    """``out`` := elements ``[start, start + len(out))`` of the members'
+    parameters flattened in stacked order (zero past their end)."""
+    end, off, pos = start + out.numel(), 0, 0
+    for _, p in members:
+        k = p.numel()
+        lo, hi = max(start, off), min(end, off + k)
+        if lo < hi:
+            out[pos:pos + hi - lo].copy_(p.detach().reshape(-1)[lo - off:
+                                                               hi - off])
+            pos += hi - lo
+        off += k
+    out[pos:].zero_()
+
+
+# ---- ZeRO-1's state ------------------------------------------------------------
+
+def make_zero1_local_state(model, n_dp: int, tp: int = 1, *,
+                           mesh=None) -> TrainState:
+    """The state :func:`make_local_accum_train_step` consumes with
+    ``zero1``: the model and, per reference leaf (keyed by its path), flat
+    zero moments of shape ``(n_dp, size / n_dp)``, ``size`` the leaf's
+    element count rounded up to a multiple of ``n_dp * tp`` (the
+    reference's layout).  With ``mesh`` each moment is a ``DTensor``
+    sharded over ``"data"`` (``Shard(0)``; replicated over any other
+    axis) and a rank holds its row alone; without, whole tensors on the
+    model's device."""
+    dev = next(model.parameters()).device
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        axes = mesh_axes(mesh)
+        if axes.get("data") != n_dp:
+            raise ValueError(f"n_dp={n_dp} but the mesh's data axis has "
+                             f"{axes.get('data')} ranks")
+        placements = [Shard(0) if a == "data" else Replicate() for a in axes]
+        dev = mesh_device(mesh)
+
+    def flat(members):
+        size = -(-_leaf_size(members) // (n_dp * tp)) * (n_dp * tp)
+        c = size // n_dp
+        if mesh is None:
+            return torch.zeros((n_dp, c), dtype=F32, device=dev)
+        return DTensor.from_local(torch.zeros((1, c), dtype=F32, device=dev),
+                                  mesh, placements, run_check=False,
+                                  shape=(n_dp, c), stride=(c, 1))
+
+    leaves = reference_leaves(model)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    return TrainState(step, model, {k: flat(m) for k, m in leaves.items()},
+                      {k: flat(m) for k, m in leaves.items()}, None)
+
+
+def abstract_zero1_local_state(cfg, n_dp: int, tp: int = 1) -> TrainState:
+    """:func:`make_zero1_local_state`'s shapes on the ``meta`` device."""
+    from .state import abstract_state
+    return make_zero1_local_state(abstract_state(cfg).params, n_dp, tp)

@@ -1025,3 +1025,54 @@ def test_checkpoint_round_trip_from_the_card(cuda_device, tmp_path):
             for a, b in pairs:
                 assert a.device.type == torch.device(device).type
                 assert torch.equal(a.detach().cpu(), b.detach().cpu()), k
+
+
+def test_zero1_step_in_an_nccl_world_of_one(cuda_device, tmp_path):
+    """The ZeRO-1 step (``DTensor`` moments on the card, NCCL's
+    reduce-scatter and all-gather) and the int8 step, each in a world of
+    one, against ``make_train_step`` from the same weights on the same
+    batch: the losses within 1e-5, the gradient norms within 1e-3 (the
+    int8 one within 2e-3: two quantizations), the params after two steps
+    within rtol 5e-3, atol 5e-5 (ZeRO-1)."""
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_train_step,
+                                        make_zero1_local_state)
+    cfg = reduced_config("phi4-mini-3.8b")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=50)
+    batch = synthetic_batch(cfg, 8, 32, 0, device=cuda_device)
+    base = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    want = init_state(copy.deepcopy(base))
+    single = make_train_step(cfg, oc, accum_steps=2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/world",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        zstate = make_zero1_local_state(copy.deepcopy(base), 1, mesh=mesh)
+        qstate = init_state(copy.deepcopy(base))
+        zstep = make_local_accum_train_step(cfg, oc, mesh, accum_steps=2,
+                                            zero1=True)
+        qstep = make_local_accum_train_step(cfg, oc, mesh, accum_steps=2,
+                                            int8_allreduce=True)
+        for _ in range(2):
+            want, mw = single(want, batch)
+            zstate, mz = zstep(zstate, batch)
+            qstate, mq = qstep(qstate, batch)
+            for m, gtol in ((mz, 1e-3), (mq, 2e-3)):
+                np.testing.assert_allclose(float(m["loss"]),
+                                           float(mw["loss"]), rtol=1e-5)
+                np.testing.assert_allclose(float(m["grad_norm"]),
+                                           float(mw["grad_norm"]), rtol=gtol)
+        assert all(v.to_local().is_cuda for v in zstate.mu.values())
+        for a, b in zip(zstate.params.parameters(), want.params.parameters()):
+            np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                       b.detach().cpu().numpy(), rtol=5e-3,
+                                       atol=5e-5)
+    finally:
+        dist.destroy_process_group()
