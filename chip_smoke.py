@@ -187,6 +187,33 @@ Phases (any failure exits non-zero):
     the card at a time.  ``--cards N`` ends with a world of N ranks over
     NCCL, one card each, training phi4-mini-3.8b at full width (4 ZeRO-1
     steps, 4 int8 steps; losses and params equal on every rank);
+3j. (run last, after 3i) tensor-parallel execution, its numbers under
+    ``tp`` in the JSON.  (a) A world of two ranks over gloo on this one
+    card (``--tp-rank``, mesh ``(1, 2)``; a test of the tp arithmetic,
+    not a deployment): each of the 10 reduced archs from
+    ``init_params(cfg, SEED, tp=2)``, sharded by ``shard_model``, against
+    the unsharded run of the same padded parameters in the same rank
+    (cuBLAS's bf16 reduced-precision reduction off): the loss within
+    5e-4, every whole gradient within 5e-2 of its leaf's largest
+    magnitude, the prefill's and 8 decode steps' logits within 2e-2 beyond
+    the unsharded run's own spread between the card and the CPU (the
+    repo's ``LOSS_RTOL``, ``GRAD_TOL`` and ``TOL``), every cache leaf of
+    the rank's shape by ``cache_pspec``; then a world of four, ``(2, 2)``:
+    the reduced phi4-mini's f32, int8 and ZeRO-1 steps against
+    ``make_train_step`` from the same weights (the 3i bounds).  (b)
+    phi4-mini-3.8b at full width and depth, bf16, tp=2 over gloo on this
+    card: each rank loads the scale-22 text (the loader's launches counted
+    from 0) for 8 walk prompts of 32 tokens, prefills them and takes 16
+    greedy steps (event ms a step, tokens/s, launches of a traced step,
+    the collectives' calls and bytes of the last step, weight and cache
+    bytes a rank, peak memory); the parent runs tp=1 on the same weights
+    and prompts, and the token streams must agree wherever tp=1's top-2
+    margin exceeds ``MARGIN_TOL``.  (c) phi4-mini-3.8b at full width, 4
+    layers deep, f32, one local-accumulation step at tp=2 against
+    ``make_train_step`` in the parent (loss within 5e-4, gradient norm
+    within 1e-2);  ``--cards N`` then decodes phi4-mini-3.8b at full width
+    and depth at tp=N over NCCL and trains it with the ``(1, N)`` f32 step
+    and the ``(N/2, 2)`` ZeRO-1 step (2 steps each: ms, peak memory);
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1541,6 +1568,8 @@ def sharded_across_cards(torch, cards: int) -> int:
     del oracle
     report["train_dp"] = train_dp_across_cards(torch, cards, p22)
     say(json.dumps({f"train_dp_nccl_d{cards}": report["train_dp"]}))
+    report["tp"] = tp_across_cards(torch, cards, p22)
+    say(json.dumps({f"tp_nccl_{cards}": report["tp"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -2732,10 +2761,11 @@ def plain_compressed_allreduce(torch, xs):
     sends = [quantize_int8(row.view(n, -1)) for row in flat]
     sums = []
     for k in range(n):
-        acc = sends[0][0][k].float() * sends[0][1]
-        for j in range(1, n):
-            acc = acc + sends[j][0][k].float() * sends[j][1]
-        sums.append(quantize_int8(acc))
+        acc = sends[0][0][k].double() * sends[0][1].double()
+        for j in range(1, n):      # the product exact in f64, as an FMA's
+            acc = (acc.float().double()
+                   + sends[j][0][k].double() * sends[j][1].double())
+        sums.append(quantize_int8(acc.float()))
     y = torch.cat([q.float() * s for q, s in sums])
     return sends, sums, (y[:-pad] if pad else y)
 
@@ -3175,6 +3205,535 @@ def train_dp_across_cards(torch, cards, path22):
                     for r in rows), f"--cards {cards} {mode}: the params "
                 f"equal on every rank after {DP_STEPS} steps")
     return {"world_s": wall, "ranks": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: tensor-parallel execution over a "model" axis
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = ("nemotron-4-15b", "granite-20b", "starcoder2-7b",
+            "phi4-mini-3.8b", "recurrentgemma-2b", "mixtral-8x22b",
+            "llama4-maverick-400b-a17b", "musicgen-large",
+            "llama-3.2-vision-11b", "falcon-mamba-7b")
+TP_REDUCED_STEPS = 8      # decode steps of each reduced arch
+TP_REDUCED_SEQ, TP_REDUCED_MAX = 16, 32
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_STEPS = 8, 32, 16
+TP_SERVE_MAX = 64
+TP_TRAIN_LAYERS = 4       # full width, cut in depth (module docstring)
+# the repo's tolerances (tests/torch_train_ref.py, tests/torch_models_ref.py,
+# tests/torch_lm.py): the sharded run against the unsharded one of the same
+# padded parameters on the card
+TP_LOSS_RTOL, TP_GRAD_TOL, TP_LOGIT_TOL = 5e-4, 5e-2, 2e-2
+TP_GNORM_RTOL = 1e-2      # five times TRAIN_RTOL, as the step tests hold it
+MARGIN_TOL = 0.1          # two greedy streams part only below this margin
+
+
+def tp_forward(torch, model, cfg, batch, tokens):
+    """Loss, whole gradients, prefill logits and teacher-forced decode
+    logits of ``model`` (sharded or not)."""
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.models import loss_fn
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, batch, cfg)
+    loss.backward()
+    lay, mg = getattr(model, "layouts", {}), getattr(model, "mg", None)
+    grads = {n: tpar.whole(p.grad, lay.get(n), mg)
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    prompt = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+              for k, v in batch.items() if k != "labels"}
+    prefill = make_prefill_step(cfg, TP_REDUCED_MAX, tp=model.tp)
+    decode = make_decode_step(cfg, TP_REDUCED_MAX, tp=model.tp)
+    lg, caches = prefill(model, prompt)
+    logits = [lg.float()]
+    b = lg.shape[0]
+    for i in range(TP_REDUCED_STEPS):
+        pos = torch.full((b,), TP_REDUCED_SEQ + i, dtype=torch.int32,
+                         device=lg.device)
+        _, lg, caches = decode(model, caches, {"token": tokens[i],
+                                               "pos": pos})
+        logits.append(lg.float())
+    return float(loss.detach()), grads, logits, caches
+
+
+def tp_reduced_checks(torch, mesh, rank):
+    """Phase 3j (a), one rank of the (1, 2) world on one card: every
+    reduced arch from ``init_params(cfg, SEED, tp=2)``, sharded, against
+    the unsharded run of the same padded parameters."""
+    import copy
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.distributed.sharding import cache_model_dim
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import init_caches
+    dev = mesh_device(mesh)
+    tp = mesh.mesh.shape[1]
+    # cuBLAS's bf16 reduced-precision reduction off: the sharded run sums
+    # its row-parallel partial products in f32, and the unsharded one
+    # should not carry an error of its own into the comparison
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = reduced_config(arch)
+        base = init_params(cfg, SEED, tp=tp, device=dev, dtype=torch.float32)
+        batch = synthetic_batch(cfg, 2, TP_REDUCED_SEQ, 0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        tokens = torch.randint(0, cfg.vocab_size, (TP_REDUCED_STEPS, 2),
+                               generator=g, device=dev, dtype=torch.int32)
+        l0, g0, o0, _ = tp_forward(torch, copy.deepcopy(base), cfg, batch,
+                                   tokens)
+        cpu = {k: v.cpu() for k, v in batch.items()}
+        _, _, on_cpu, _ = tp_forward(torch, copy.deepcopy(base).cpu(), cfg,
+                                     cpu, tokens.cpu())
+        sharded = tpar.shard_model(base, cfg, mesh)
+        l1, g1, o1, caches = tp_forward(torch, sharded, cfg, batch, tokens)
+        gerr = max(float((g1[n] - g0[n]).abs().max()
+                         / g0[n].abs().max().clamp_min(1e-30)) for n in g0)
+        # at TP_LOGIT_TOL beyond the unsharded run's own spread between
+        # the card and the CPU (bf16 GEMMs of other shapes round
+        # differently on the card, and a flip in the residual stream
+        # grows with depth), as tests/torch_models_ref.hold_compiled
+        # holds the port beyond the reference's compiled/op-by-op spread
+        lerr, raw, spread = -1.0, 0.0, 0.0
+        for a, b, c in zip(o1, o0, on_cpu):
+            own = (c.to(b.device) - b).abs()
+            d = (a - b).abs()
+            raw, spread = max(raw, float(d.max())), max(spread,
+                                                        float(own.max()))
+            lerr = max(lerr, float((d - own - TP_LOGIT_TOL * (1 + b.abs()))
+                                   .max()))
+        whole = init_caches(cfg, 2, TP_REDUCED_MAX, device="meta")
+        split = 0
+        for c, w in zip(caches, whole):
+            for k, t in c.items():
+                dim = cache_model_dim(k, tuple(w[k].shape), cfg, tp)
+                want = list(w[k].shape)
+                if dim is not None:
+                    want[dim] //= tp
+                    split += 1
+                require(list(t.shape) == want, f"tp_reduced {arch} rank "
+                        f"{rank}: cache {k} {list(t.shape)} != {want}")
+        out[arch] = {"loss": l1, "unsharded_loss": l0, "grad_err": gerr,
+                     "logits_past_tol": lerr, "logits_max_diff": raw,
+                     "card_cpu_spread": spread, "cache_leaves_split": split,
+                     "param_bytes_rank": sum(p.numel() * p.element_size()
+                                             for p in sharded.parameters())}
+        del base, sharded, g0, g1
+    return out
+
+
+def tp_step_checks(torch, mesh, rank):
+    """Phase 3j (a), one rank of the (2, 2) world on one card: the reduced
+    phi4-mini's f32, int8 and ZeRO-1 steps against ``make_train_step``
+    from the same weights on the same batch."""
+    import copy
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_train_step,
+                                        make_zero1_local_state)
+    dev = mesh_device(mesh)
+    n_dp, tp = mesh.mesh.shape
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = reduced_config(TRAIN_ARCH)
+    oc = OptimizerConfig(**DP_REDUCED_OC)
+    batch = synthetic_batch(cfg, 8, 32, 0, device=dev)
+    base = init_params(cfg, SEED, tp=tp, device=dev, dtype=torch.float32)
+    want, m_one = make_train_step(cfg, oc, accum_steps=DP_ACCUM)(
+        init_state(copy.deepcopy(base)), batch)
+    row = {}
+    for mode, tol in (("local", DP_LOCAL_TOL), ("int8", None),
+                      ("zero1", DP_ZERO1_TOL)):
+        model = tpar.shard_model(copy.deepcopy(base), cfg, mesh)
+        state = make_zero1_local_state(model, n_dp, tp, mesh=mesh) \
+            if mode == "zero1" else init_state(model)
+        step = make_local_accum_train_step(
+            cfg, oc, mesh, accum_steps=DP_ACCUM, zero1=mode == "zero1",
+            int8_allreduce=mode == "int8")
+        state, m = step(state, batch)
+        r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "single_loss": float(m_one["loss"]),
+             "single_grad_norm": float(m_one["grad_norm"])}
+        tpar.gather_model(state.params)
+        if tol is not None:
+            r["params_past_tol"] = dp_step_errs(torch, state.params,
+                                                want.params, tol)
+        if mode == "zero1":
+            r["moment_block"] = list(next(iter(state.mu.values()))
+                                     .to_local().shape)
+        row[mode] = r
+        del state, model
+    return row
+
+
+def tp_prompts(torch, kernels, cfg, text_path, dev):
+    """``TP_SERVE_BATCH`` prompts from GVEL walks of the text graph (its
+    load counted): the first batch of ``graph_walk_source``."""
+    from repro_torch.data.pipeline import graph_walk_source
+    source = graph_walk_source(text_path, cfg, TP_SERVE_BATCH,
+                               TP_SERVE_PROMPT, device=dev)
+    batch, load_s, lc = counted(torch, kernels, lambda: source(0))
+    return batch["tokens"], load_s, lc
+
+
+def tp_decode_run(torch, model, cfg, prompts, tp, record=None):
+    """Prefill ``prompts`` and ``TP_SERVE_STEPS`` greedy steps: tokens,
+    each step's ms (CUDA events), the collectives of the last step and,
+    from one traced step, its launches."""
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(cfg, TP_SERVE_MAX, tp=tp)
+    decode = make_decode_step(cfg, TP_SERVE_MAX, tp=tp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = prefill(model, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    def margin(lg):
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).cpu().tolist()
+    nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+    tokens, margins, ms, coll = [nxt.cpu().tolist()], [margin(lg)], [], {}
+    b = prompts.shape[0]
+    for i in range(TP_SERVE_STEPS):
+        pos = torch.full((b,), TP_SERVE_PROMPT + i, dtype=torch.int32,
+                         device=prompts.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == TP_SERVE_STEPS - 1:
+            with collective_bytes(coll):
+                nxt, lg, caches = decode(model, caches, {"token": nxt,
+                                                         "pos": pos})
+        else:
+            nxt, lg, caches = decode(model, caches, {"token": nxt,
+                                                     "pos": pos})
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        margins.append(margin(lg))
+        tokens.append(nxt.cpu().tolist())
+    pos = torch.full((b,), TP_SERVE_PROMPT, dtype=torch.int32,
+                     device=prompts.device)
+    with traced(torch) as prof:
+        decode(model, caches, {"token": nxt, "pos": pos})
+    launches, _ = card_records(prof)
+    med = spread(ms[2:])
+    return {"tokens": tokens, "margins": margins, "prefill_ms": prefill_ms,
+            "step_ms": ms, "step_ms_after_2": med,
+            "tokens_per_s": b / (med["p50"] / 1e3),
+            "launches_per_step": len(launches),
+            "collectives_per_step": coll,
+            "cache_bytes_rank": cache_bytes(caches),
+            "weight_bytes_rank": sum(p.numel() * p.element_size()
+                                     for p in model.parameters())}
+
+
+def tp_serve_full(torch, kernels, mesh, rank, cfg_row):
+    """Phase 3j (b), one rank: phi4-mini-3.8b at full width and depth, bf16,
+    sharded at tp=2; prompts from walks of the scale-22 text."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    dev = mesh_device(mesh)
+    tp = mesh.mesh.shape[1]
+    cfg = get_config(SERVE_ARCH)
+    prompts, load_s, lc = tp_prompts(torch, kernels, cfg, cfg_row["path"],
+                                     dev)
+    need(lc, LOAD_KERNELS, f"tp serve rank {rank}: the text load")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, SEED, tp=tp, device=dev)
+    if cfg_row["backend"] == "nccl":
+        for p in model.parameters():
+            dist.broadcast(p.detach(), src=0)
+    tpar.shard_model(model, cfg, mesh)
+    free_card(torch)
+    row = tp_decode_run(torch, model, cfg, prompts, tp)
+    row.update(text_load_s=load_s, launches=lc,
+               prompts=prompts.cpu().tolist(),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del model
+    free_card(torch)
+    return row
+
+
+def tp_train_full(torch, mesh, run, backend):
+    """Phase 3j (c) (``layers`` deep) and ``--cards 4``'s training runs,
+    one rank: phi4-mini-3.8b at full width from the seed's f32 weights,
+    ``steps`` local-accumulation steps (f32, or ZeRO-1) on one fixed
+    batch: losses, gradient norms, step ms, peak memory, the state's bytes
+    a rank."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_zero1_local_state)
+    dev = mesh_device(mesh)
+    n_dp, tp = mesh.mesh.shape
+    cfg = get_config(TRAIN_ARCH)
+    if run.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
+    zero1 = run.get("zero1", False)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, SEED, tp=tp, device=dev, dtype=torch.float32)
+    if backend == "nccl":
+        for p in model.parameters():
+            dist.broadcast(p.detach(), src=0)
+    tpar.shard_model(model, cfg, mesh)
+    free_card(torch)
+    state = make_zero1_local_state(model, n_dp, tp, mesh=mesh) if zero1 \
+        else init_state(model)
+    step = make_local_accum_train_step(
+        cfg, OptimizerConfig(**DP_FULL_OC), mesh, remat_policy="full",
+        accum_steps=1, zero1=zero1)
+    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, device=dev)
+    losses, norms, ms, coll = [], [], [], {}
+    steps = run.get("steps", 1)
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes(coll if i == steps - 1 else {}):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    local = (lambda t: t.to_local() if hasattr(t, "to_local") else t)
+    row = {"layers": cfg.num_layers, "mesh": [n_dp, tp], "zero1": zero1,
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "collectives_last_step": coll,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes_rank": sum(p.numel() * 4
+                                   for p in state.params.parameters()),
+           "moment_bytes_rank": sum(local(t).numel() * 4 for t in
+                                    list(state.mu.values())
+                                    + list(state.nu.values()))}
+    require(all(np.isfinite(losses)), f"tp train {row}: finite losses")
+    del state, model, step
+    free_card(torch)
+    return row
+
+
+def tp_rank(cfg_path) -> int:
+    """One rank of a phase-3j world (``--tp-rank``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.scripts import local_world
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(int(os.environ["RANK"])
+                          % torch.cuda.device_count())
+    mesh, rank, world = local_world.join(cfg["backend"], "cuda",
+                                         cfg["mesh"], ("data", "model"))
+    try:
+        rows = {}
+        for mode in cfg["modes"]:
+            if mode == "reduced":
+                rows[mode] = tp_reduced_checks(torch, mesh, rank)
+            elif mode == "steps":
+                rows[mode] = tp_step_checks(torch, mesh, rank)
+            elif mode == "serve":
+                rows[mode] = tp_serve_full(torch, kernels, mesh, rank, cfg)
+            else:
+                rows[mode] = tp_train_full(torch, mesh, cfg[mode],
+                                           cfg["backend"])
+        if cfg.get("then_mesh"):       # --cards: a second mesh in the world
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh2 = init_device_mesh("cuda", tuple(cfg["then_mesh"]),
+                                     mesh_dim_names=("data", "model"))
+            for mode in cfg["then_modes"]:
+                rows[mode] = tp_train_full(torch, mesh2, cfg[mode],
+                                           cfg["backend"])
+    finally:
+        local_world.leave()
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def tp_world(name, mesh, backend, modes, **extra):
+    """A world of ``mesh[0] * mesh[1]`` ranks of this script
+    (:func:`tp_rank`); returns ``(wall seconds, every rank's rows)``."""
+    from repro_torch.scripts import local_world
+    out = os.path.join(OUT, f"tp_{name}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = os.path.join(out, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"mesh": list(mesh), "backend": backend, "modes": modes,
+                   "out": out, **extra}, f)
+    t0 = time.perf_counter()
+    runs = local_world.spawn([sys.executable, os.path.abspath(__file__),
+                              "--tp-rank", cfg], mesh[0] * mesh[1],
+                             timeout=900, workdir=out)
+    wall = time.perf_counter() - t0
+    rows = []
+    for k, run in enumerate(runs):
+        require(run.returncode == 0, f"tp {name} over {backend}: rank {k} "
+                f"exited {run.returncode}:\n{run.stdout[-3000:]}"
+                f"{run.stderr[-3000:]}")
+        with open(os.path.join(out, f"rank{k}.json")) as f:
+            rows.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    return wall, rows
+
+
+def check_tp_reduced(reduced, steps):
+    """Phase 3j (a)'s requirements over the two worlds' rows."""
+    for k, r in enumerate(reduced):
+        for arch, a in r["reduced"].items():
+            require(abs(a["loss"] - a["unsharded_loss"])
+                    <= TP_LOSS_RTOL * abs(a["unsharded_loss"])
+                    and a["grad_err"] <= TP_GRAD_TOL
+                    and a["logits_past_tol"] <= 0,
+                    f"tp_reduced {arch} rank {k}: sharded against unsharded "
+                    f"({a})")
+    for k, r in enumerate(steps):
+        for mode, m in r["steps"].items():
+            require(abs(m["loss"] - m["single_loss"])
+                    <= CARD_LOSS_RTOL * abs(m["single_loss"])
+                    and abs(m["grad_norm"] - m["single_grad_norm"])
+                    <= CARD_GNORM_RTOL * m["single_grad_norm"]
+                    and m.get("params_past_tol", 0) <= 0,
+                    f"tp (2, 2) rank {k} {mode}: against make_train_step "
+                    f"({m})")
+
+
+def check_tp_streams(got, want):
+    """Greedy token streams of the sharded and the unsharded run (one
+    token from the prefill, then one a step): row by row equal up to the
+    first token whose top-2 margin in the unsharded run is within
+    ``MARGIN_TOL`` (from there the rows may part).  Returns the tokens
+    compared."""
+    compared = 0
+    for row in range(len(want["tokens"][0])):
+        for a, b, m in zip(got["tokens"], want["tokens"], want["margins"]):
+            if m[row] <= MARGIN_TOL:
+                break
+            require(a[row] == b[row], f"tp serve row {row}: token {a[row]} "
+                    f"!= {b[row]} with a margin of {m[row]}")
+            compared += 1
+    return compared
+
+
+def phase_tp(torch, kernels, text_path, report):
+    """Tensor-parallel execution on the card (phase 3j): (a) reduced parity
+    in a (1, 2) and a (2, 2) world over gloo on this card; (b) phi4-mini-3.8b
+    served at full width and depth at tp=2 against tp=1; (c) trained at
+    full width, ``TP_TRAIN_LAYERS`` deep, at tp=2 against tp=1.  Returns
+    the loader's launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    free_card(torch)
+    row = {}
+    report["tp"] = row
+    wall_a, rows_a = tp_world("reduced", (1, 2), "gloo", ["reduced"])
+    wall_s, rows_s = tp_world("steps", (2, 2), "gloo", ["steps"])
+    check_tp_reduced(rows_a, rows_s)
+    row["reduced"] = {"what": "a test of the tp arithmetic on one card "
+                      "over gloo, not a deployment", "world_s": wall_a,
+                      "steps_world_s": wall_s, "ranks": rows_a,
+                      "steps": rows_s}
+    say(json.dumps({"tp_reduced": row["reduced"]}))
+
+    dev = torch.device("cuda", 0)
+    wall_b, rows_b = tp_world("serve", (1, 2), "gloo", ["serve"],
+                              path=text_path)
+    cfg = get_config(SERVE_ARCH)
+    prompts = torch.tensor(rows_b[0]["serve"]["prompts"], dtype=torch.int32,
+                           device=dev)
+    for r in rows_b[1:]:
+        require(r["serve"]["prompts"] == rows_b[0]["serve"]["prompts"] and
+                r["serve"]["tokens"] == rows_b[0]["serve"]["tokens"],
+                "tp serve: every rank's prompts and tokens equal")
+    model = init_params(cfg, SEED, tp=2, device=dev)
+    want = tp_decode_run(torch, model, cfg, prompts, 2)
+    del model
+    free_card(torch)
+    compared = check_tp_streams(rows_b[0]["serve"], want)
+    row["serve"] = {"what": "tp=2 over gloo, both ranks on this card",
+                    "world_s": wall_b,
+                    "ranks": [{k: v for k, v in r["serve"].items()
+                               if k not in ("prompts", "margins")}
+                              for r in rows_b],
+                    "tp1": {k: v for k, v in want.items()
+                            if k not in ("margins",)},
+                    "tokens_compared": compared}
+    say(json.dumps({"tp_serve": row["serve"]}))
+
+    train = {"layers": TP_TRAIN_LAYERS, "steps": 1}
+    wall_c, rows_c = tp_world("train", (1, 2), "gloo", ["train"],
+                              train=train)
+    cfg4 = dataclasses.replace(get_config(TRAIN_ARCH),
+                               num_layers=TP_TRAIN_LAYERS)
+    state = init_state(init_params(cfg4, SEED, tp=2, device=dev,
+                                   dtype=torch.float32))
+    step = make_train_step(cfg4, OptimizerConfig(**DP_FULL_OC),
+                           remat_policy="full")
+    state, m = step(state, synthetic_batch(cfg4, TRAIN_BATCH, TRAIN_SEQ, 0,
+                                           device=dev))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    del state, step
+    free_card(torch)
+    got = rows_c[0]["train"]
+    require(abs(got["losses"][0] - loss) <= TP_LOSS_RTOL * abs(loss)
+            and abs(got["grad_norms"][0] - gnorm) <= TP_GNORM_RTOL * gnorm,
+            f"tp train: tp=2 loss {got['losses'][0]} / grad norm "
+            f"{got['grad_norms'][0]} against tp=1's {loss} / {gnorm}")
+    row["train"] = {"world_s": wall_c, "ranks": [r["train"] for r in rows_c],
+                    "tp1_loss": loss, "tp1_grad_norm": gnorm}
+    say(json.dumps({"tp_train": row["train"]}))
+    row["phase_s"] = time.perf_counter() - t_phase
+    say("phase 3j: tensor-parallel execution (10 reduced archs at tp=2, "
+        "(2, 2) steps, phi4-mini-3.8b served and trained at tp=2) checks "
+        "out on the card")
+    return {f"tp serve rank {k}: the text load for the prompts":
+            r["serve"]["launches"] for k, r in enumerate(rows_b)}
+
+
+def tp_across_cards(torch, cards, path22):
+    """``--cards N``'s tensor-parallel world: N ranks over NCCL, one card
+    each: phi4-mini-3.8b at full width and depth decoded at tp=N and
+    trained with the f32 step on (1, N), then the ZeRO-1 step on (N/2,
+    2)."""
+    full = {"steps": 2}
+    wall, rows = tp_world(
+        "cards", (1, cards), "nccl", ["serve", "train"], path=path22,
+        train=full, then_mesh=[cards // 2, 2], then_modes=["zero1"],
+        zero1=dict(full, zero1=True))
+    for mode in ("train", "zero1"):
+        require(all(r[mode]["losses"] == rows[0][mode]["losses"]
+                    for r in rows), f"--cards {cards} tp {mode}: the "
+                f"losses equal on every rank")
+    require(all(r["serve"]["tokens"] == rows[0]["serve"]["tokens"]
+                for r in rows), f"--cards {cards} tp serve: the tokens "
+            f"equal on every rank")
+    return {"world_s": wall,
+            "ranks": [{k: ({kk: vv for kk, vv in v.items()
+                            if kk not in ("prompts", "margins")}
+                           if k == "serve" else v) for k, v in r.items()}
+                      for r in rows]}
 
 
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
@@ -3627,9 +4186,11 @@ def main() -> int:
     ap.add_argument("--cards", type=int, metavar="N",
                     help="only the sharded load, over NCCL: worlds of 1 "
                          "and N ranks, one card each, then data-parallel "
-                         "training across the N cards (needs N cards)")
+                         "training across the N cards, then tensor-parallel "
+                         "decode and training (needs N cards)")
     ap.add_argument("--shard-rank", metavar="CFG", help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank", metavar="CFG", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3643,6 +4204,8 @@ def main() -> int:
         return shard_rank(args.shard_rank)
     if args.dp_rank:                     # a rank of a phase-3i world
         return dp_rank(args.dp_rank)
+    if args.tp_rank:                     # a rank of a phase-3j world
+        return tp_rank(args.tp_rank)
     if args.cards:
         return sharded_across_cards(torch, args.cards)
     import repro_torch
@@ -3729,6 +4292,7 @@ def main() -> int:
     os.remove(served_snap)
     by_path.update(phase_train_lm(torch, kernels, p22, report))
     by_path.update(phase_train_dp(torch, kernels, p22, report))
+    by_path.update(phase_tp(torch, kernels, p22, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

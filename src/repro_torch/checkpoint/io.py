@@ -24,6 +24,13 @@ template its own slice alone; with ``placements`` (and ``mesh``) it puts
 each named leaf on the mesh as a new ``DTensor``, so no rank holds a
 whole leaf it does not keep (``reshard.py``).
 
+A model that ``distributed.tensor_parallel.shard_model`` has sharded
+saves the reference's logical leaves too: each piece of its parameters,
+moments and error buffer is gathered whole over the model group (every
+rank takes part), and a restore into such a model copies each rank its
+piece (``tensor_parallel.take``), so a checkpoint crosses between ``tp``
+widths and packages.
+
 Leaves are copied to the host before a save returns or its writer thread
 starts, so an async save never reads a tensor that the next step
 changes.  Saves go to a ``.tmp`` directory and an atomic rename, so a
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..distributed import tensor_parallel as tpar
 from ..models.transformer import reference_paths
 from ..train.state import TrainState
 
@@ -79,11 +87,28 @@ def _flatten(state: TrainState) -> Dict[str, object]:
             continue
         tree = getattr(state, field)
         t = tree.get_parameter(name) if field == "params" else tree[name]
+        t = _whole_piece(state.params, name, t)
         if j is None:
             flat[key] = t
         else:
             flat.setdefault(key, {})[j] = t
     return flat
+
+
+def _layout(model, name: str):
+    """(the model group, parameter ``name``'s layout) on a sharded model;
+    (None, None) elsewhere and for a key that is not a parameter's."""
+    mg = getattr(model, "mg", None)
+    if mg is None or name not in getattr(model, "layouts", {}):
+        return None, None
+    return mg, model.layouts[name]
+
+
+def _whole_piece(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """A sharded model's piece ``t`` of leaf ``name`` gathered whole (a
+    collective); ``t`` itself elsewhere."""
+    mg, layout = _layout(model, name)
+    return t if layout is None else tpar.whole(t.detach(), layout, mg)
 
 
 def _is_dtensor(t) -> bool:
@@ -253,6 +278,10 @@ def restore(template: TrainState, directory: str,
         dst = tree.get_parameter(name) if field == "params" else tree[name]
         pl = placements.get(field, {}).get(name)
         if pl is None:
+            mg, layout = _layout(template.params, name)
+            if layout is not None:      # this rank's piece of the leaf
+                arr = tpar.take(torch.from_numpy(np.array(arr)), layout,
+                                mg.rank, mg.size).numpy()
             _put(dst, arr, what)
             continue
         if tuple(arr.shape) != tuple(dst.shape):

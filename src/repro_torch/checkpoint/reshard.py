@@ -24,9 +24,11 @@ def reshard_restore(template, directory: str, cfg, mesh, *, fsdp: bool,
     parameters by :func:`~..distributed.sharding.param_placements`, the
     moments and the error buffer (where there is one) by
     ``moment_placements``, each a ``DTensor`` of which this rank holds its
-    slice.  ``template`` (``train.state.abstract_state`` will do) gives
-    the structure; its model comes back with ``DTensor`` parameters.
-    Returns ``(state, step)``."""
+    slice.  ``template`` (``train.state.abstract_state`` will do, at the
+    checkpoint's ``tp``) gives the structure; its model comes back with
+    ``DTensor`` parameters, which
+    ``distributed.tensor_parallel.shard_model`` turns into a model that
+    runs on the mesh's model axis.  Returns ``(state, step)``."""
     model = template.params
     pp = shd.param_placements(model, cfg, mesh, fsdp=fsdp)
     mp = shd.moment_placements(model, cfg, mesh, fsdp=fsdp)

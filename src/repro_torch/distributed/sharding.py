@@ -21,7 +21,9 @@ per-layer tensors: ``Shard(d)`` on each mesh dim whose axis the spec puts
 on dim ``d``, ``Replicate()`` elsewhere, the stacked leading entry
 dropped.  A per-layer tensor cannot shard the layer axis, so where a
 moment's rule puts a data axis there, that mesh dim replicates the layer's
-moment instead.  ``cache_shardings`` waits for the tensor-parallel slice.
+moment instead.  :func:`cache_placements` is ``cache_shardings``'s port
+for the per-layer caches; :func:`cache_model_dim` tells a layer which dim
+of its cache a rank holds a slice of.
 """
 from __future__ import annotations
 
@@ -180,6 +182,19 @@ def cache_pspec(path: Sequence[str], shape: Sequence[int], cfg,
     return (None,) * len(shape)
 
 
+def cache_model_dim(name: str, shape: Sequence[int], cfg,
+                    tp: int) -> Optional[int]:
+    """The dim of a per-layer cache leaf of the whole ``shape`` (no
+    stacked axis) that :func:`cache_pspec` splits over ``"model"`` at
+    ``tp``, or None (whole on every rank)."""
+    spec = cache_pspec((name,), (1,) + tuple(shape), cfg,
+                       {"data": 1, "model": tp})
+    for d, entry in enumerate(spec[1:]):
+        if entry == "model":
+            return d
+    return None
+
+
 # ---- specs -> DTensor placements ----------------------------------------------
 
 def mesh_axes(mesh) -> Dict[str, int]:
@@ -218,9 +233,21 @@ def _stacked(model):
     for name, p in model.named_parameters():
         path, j = paths[name]
         lead = () if j is None else (count[path],)
-        out[name] = (tuple(path.split(".")), lead + tuple(p.shape),
+        out[name] = (tuple(path.split(".")), lead + whole_shape(model, name),
                      j is not None)
     return out
+
+
+def whole_shape(model, name: str) -> Tuple[int, ...]:
+    """A parameter's whole shape: its own, but on a model that
+    ``tensor_parallel.shard_model`` has sharded, where the split dim is
+    ``tp`` times the rank's."""
+    shape = list(model.get_parameter(name).shape)
+    mg = getattr(model, "mg", None)
+    layout = getattr(model, "layouts", {}).get(name)
+    if mg is not None and layout is not None:
+        shape[layout[1]] *= mg.size
+    return tuple(shape)
 
 
 def param_specs(model, cfg, axes: Axes, *, fsdp: bool) -> Dict[str, Spec]:
@@ -248,6 +275,17 @@ def moment_placements(model, cfg, mesh, *, fsdp: bool):
                              mesh.mesh_dim_names, skip=int(stacked[name][2]))
             for name, spec in param_specs(model, cfg, axes,
                                           fsdp=fsdp).items()}
+
+
+def cache_placements(caches, cfg, mesh):
+    """``cache_shardings``'s port: each layer's cache leaves (the whole
+    ones, ``models.transformer.init_caches(..., device="meta")`` will do)
+    -> their placements on ``mesh``, one dict a layer."""
+    axes = mesh_axes(mesh)
+    return [{name: placements(cache_pspec((name,), (1,) + tuple(t.shape),
+                                          cfg, axes),
+                              mesh.mesh_dim_names, skip=1)
+             for name, t in layer.items()} for layer in caches]
 
 
 def batch_placements(mesh, batch):

@@ -12,6 +12,12 @@ Each kind's cache is a dict: ``{"k", "v"}`` for ``attn`` (the KV cache,
 written in place by the decode) and ``xattn`` (the image K/V, read only),
 ``{"conv", "h"}`` for ``rglru`` and ``{"conv", "ssm"}`` for ``mamba``
 (the decode puts the new state into the same dict).
+
+Under tensor parallelism each layer runs its rank's share
+(``distributed/tensor_parallel.py``) and each cache leaf holds the rank's
+piece by ``distributed.sharding.cache_pspec``: KV heads where ``tp``
+divides them, else the positions (or image tokens) where it divides
+those, else the whole; the recurrent states their channels.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..distributed.sharding import cache_model_dim
 from . import attention as attn
 from . import mamba as mb
 from . import mlp as mlpm
@@ -52,7 +59,8 @@ class Block(torch.nn.Module):
     submodules' parameter names are the reference's pytree keys.  Norm
     scales are f32."""
 
-    def __init__(self, kind: str, cfg, *, device=None, dtype=BF16):
+    def __init__(self, kind: str, cfg, *, tp: int = 1, device=None,
+                 dtype=BF16):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
@@ -60,7 +68,7 @@ class Block(torch.nn.Module):
         d = cfg.d_model
         self.norm1 = param((d,), device, F32)
         if kind in ("attn", "xattn"):
-            self.add_module(kind, attn.Attention(cfg, device=device,
+            self.add_module(kind, attn.Attention(cfg, tp=tp, device=device,
                                                  dtype=dtype))
         elif kind == "mamba":
             self.mamba = mb.Mamba(cfg, device=device, dtype=dtype)
@@ -121,28 +129,43 @@ def apply_layer_prefill(kind: str, p: Block, x, positions, cfg,
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if kind == "attn":
         q, k, v = attn._qkv(p.attn, h, tables)
-        x = x + attn.project_out(attn.self_attention(q, k, v, cfg, chunk=512),
-                                 p.attn.wo)
-        cache = _fill_cache(k, v, positions, spec)
+        x = x + attn.attend(p.attn, q, k, v, cfg, chunk=512)
+        cache = _placed(_fill_cache(k, v, positions, spec), cfg, p)
     elif kind == "xattn":
         if image_embeds is None:
             raise ValueError(f"{cfg.name}: an xattn layer's prefill needs "
                              f"image_embeds")
         k, v = attn.image_kv(p.xattn, image_embeds)
         x = x + attn.attend_image(p.xattn, h, k, v)
-        cache = {"k": k, "v": v}
+        cache = _placed({"k": k, "v": v}, cfg, p)
     elif kind == "mamba":
         dc = cfg.ssm.d_conv
-        u_raw, z = (h @ p.mamba.in_proj.to(BF16)).chunk(2, dim=-1)
+        u_raw, z = mb.in_proj(p.mamba, h)
         y, state = mb.mamba_mix(p.mamba, u_raw, z, cfg)
         return x + y, {"conv": u_raw[:, -(dc - 1):].contiguous(),
                        "ssm": state}
     else:
-        u_raw, g = (h @ p.rglru.in_proj.to(BF16)).chunk(2, dim=-1)
+        u_raw, g = rg.in_proj(p.rglru, h)
         y, state = rg.rglru_mix(p.rglru, u_raw, g, cfg)
         x = x + y
         cache = {"conv": u_raw[:, -3:].contiguous(), "h": state}
     return p.ffn(x, cfg)[0], cache
+
+
+def _placed(cache, cfg, p: "Block"):
+    """A prefill's K/V cache as this rank keeps it: split over the
+    positions (or image tokens) where the rules split it so; the KV-head
+    split comes from the projections already."""
+    mg = getattr(p, "mesh_mg", None)
+    if mg is None:
+        return cache
+    k = cache["k"]
+    shape = k.shape[:2] + (p.get_submodule(p.kind).num_kv_heads, k.shape[3])
+    if cache_model_dim("k", shape, cfg, mg.size) != 1:
+        return cache
+    n = k.shape[1] // mg.size
+    return {name: t.narrow(1, mg.rank * n, n).contiguous()
+            for name, t in cache.items()}
 
 
 def _fill_cache(k, v, positions, spec: attn.CacheSpec) -> Dict[str, torch.Tensor]:
@@ -163,17 +186,28 @@ def _fill_cache(k, v, positions, spec: attn.CacheSpec) -> Dict[str, torch.Tensor
 
 
 def init_layer_cache(kind: str, cfg, spec: attn.CacheSpec, batch: int,
-                     device=None) -> Dict[str, torch.Tensor]:
-    if kind == "attn":
-        return attn.init_cache(cfg, spec, batch, device)
-    if kind == "xattn":
-        shape = (batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+                     device=None, tp: int = 1) -> Dict[str, torch.Tensor]:
+    """A layer's zero cache; at ``tp > 1`` the piece one rank of the
+    model group holds."""
+    if kind in ("attn", "xattn"):
+        n = spec.length if kind == "attn" else cfg.num_image_tokens
+        shape = [batch, n, cfg.num_kv_heads, cfg.head_dim]
+        dim = cache_model_dim("k", shape, cfg, tp)
+        if dim is not None:
+            shape[dim] //= tp
         return {"k": torch.zeros(shape, dtype=BF16, device=device),
                 "v": torch.zeros(shape, dtype=BF16, device=device)}
     if kind == "mamba":
-        return mb.init_mamba_cache(cfg, batch, device)
+        di = cfg.d_inner
+        if cache_model_dim("ssm", (batch, di, cfg.ssm.d_state), cfg,
+                           tp) is not None:
+            di //= tp
+        return mb.init_mamba_cache(cfg, batch, device, di)
     if kind == "rglru":
-        return rg.init_rglru_cache(cfg, batch, device)
+        w = cfg.lru_width or cfg.d_model
+        if cache_model_dim("h", (batch, w), cfg, tp) is not None:
+            w //= tp
+        return rg.init_rglru_cache(cfg, batch, device, w)
     raise ValueError(kind)
 
 

@@ -13,6 +13,15 @@ dtype (bf16 to serve, f32 to train) and cast to bf16 at each use.
 Training runs :func:`mamba_apply` under autograd, which keeps each step's
 ``(B, d_inner, d_state)`` state for the backward pass; no op writes in
 place.
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) ``d_inner``
+is split over the model group: ``in_proj`` is column-parallel (a rank
+holds its slice of the ``x`` half and of the ``z`` half: the ``"halves"``
+layout), ``x_proj`` and ``out_proj`` row-parallel (``(dt, B, C)`` reduced
+before the split), ``conv_w``, ``dt_proj`` and ``A_log`` local, and
+``conv_b``, ``dt_bias`` and ``D`` split where the rules shard them (1,024
+channels and up) and sliced locally otherwise.  The conv and SSM states
+hold the rank's channels.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tpar
 from .layers import (BF16, F32, dense_init, depthwise_conv, param, silu,
                      softplus)
 
@@ -63,13 +73,21 @@ class Mamba(torch.nn.Module):
         self.D.fill_(1.0)
 
 
+def in_proj(p, x: torch.Tensor):
+    """``x (B, S, D)`` -> the conv input and the gate, ``(B, S, di)`` bf16
+    each (this rank's channels)."""
+    h = tpar.copy_to(x, getattr(p, "mg", None)) @ p.in_proj.to(BF16)
+    return h.chunk(2, dim=-1)
+
+
 def _ssm_inputs(p, u: torch.Tensor, cfg):
     """u: ``(B, L, di)`` post-conv bf16 -> (dA, dBu, C)."""
     s = cfg.ssm
-    bc = (u @ p.x_proj.to(BF16)).to(F32)
+    mg = getattr(p, "mg", None)
+    bc = tpar.copy_to(tpar.row_parallel(u, p.x_proj, mg).to(F32), mg)
     dt, bm, cm = bc.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
     dt = softplus((dt.to(BF16) @ p.dt_proj.to(BF16)).to(F32)
-                  + p.dt_bias)                               # (B,L,di)
+                  + tpar.local_of(p, "dt_bias"))             # (B,L,di)
     a = -torch.exp(p.A_log)                                        # (di, N)
     da = torch.exp(dt[..., None] * a)                              # (B,L,di,N)
     dbu = dt[..., None] * bm[:, :, None, :] * u.to(F32)[..., None]
@@ -82,14 +100,15 @@ def _read(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_silu(win: torch.Tensor, p, length: int) -> torch.Tensor:
-    conv = depthwise_conv(win, p.conv_w.to(BF16), p.conv_b.to(BF16), length)
+    conv = depthwise_conv(win, p.conv_w.to(BF16),
+                          tpar.local_of(p, "conv_b").to(BF16), length)
     return silu(conv.to(F32)).to(BF16)
 
 
 def _finish(p, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor):
-    y = y + u.to(F32) * p.D
+    y = y + u.to(F32) * tpar.local_of(p, "D")
     y = y.to(BF16) * silu(z.to(F32)).to(BF16)
-    return y @ p.out_proj.to(BF16)
+    return tpar.row_parallel(y, p.out_proj, getattr(p, "mg", None))
 
 
 def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
@@ -117,23 +136,26 @@ def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
 def mamba_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,
                 return_state: bool = False):
     """x: ``(B, S, D)``.  Full-sequence form (prefill)."""
-    u, z = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)
+    u, z = in_proj(p, x)
     out, state = mamba_mix(p, u, z, cfg, chunk=chunk, state=state)
     return (out, state) if return_state else out
 
 
-def init_mamba_cache(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
+def init_mamba_cache(cfg, batch: int, device=None,
+                     inner: int = 0) -> Dict[str, torch.Tensor]:
+    """Zero states of ``inner`` channels (default all of ``d_inner``)."""
+    di = inner or cfg.d_inner
     return {
-        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
-                            dtype=BF16, device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm.d_state), dtype=F32,
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di), dtype=BF16,
+                            device=device),
+        "ssm": torch.zeros((batch, di, cfg.ssm.d_state), dtype=F32,
                            device=device),
     }
 
 
 def mamba_decode(p, x: torch.Tensor, cache, cfg):
     """x: ``(B, 1, D)`` one token -> (out, the new ``{"conv", "ssm"}``)."""
-    u, z = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)        # (B,1,di)
+    u, z = in_proj(p, x)                                    # (B,1,di)
     win = torch.cat([cache["conv"], u], dim=1)              # (B,dc,di)
     u1 = _conv_silu(win, p, 1)                              # (B,1,di)
     da, dbu, cm = _ssm_inputs(p, u1, cfg)

@@ -5,6 +5,11 @@ Products take bf16 in and give bf16 out; the activation runs in f32, is
 cast to bf16 and then multiplied in bf16 (the reference's sequence).  SiLU
 is ``x * sigmoid(x)`` as ``jax.nn.silu``; GELU is the tanh form,
 ``jax.nn.gelu``'s default.
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) ``w_in`` and
+``w_gate`` are column-parallel and ``w_out`` row-parallel over ``d_ff``;
+where ``tp`` does not divide ``d_ff`` the three stay whole and the layer
+runs whole on every rank, with no collective.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tpar
 from .layers import BF16, F32, dense_init, param, silu
 
 KINDS = ("swiglu", "geglu", "relu2", "gelu")
@@ -49,7 +55,10 @@ class MLP(torch.nn.Module):
 
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     """``p``: anything with ``w_in``/``w_out`` (and ``w_gate``), each cast
-    to bf16 at its use."""
+    to bf16 at its use (this rank's columns and rows where ``p.mg`` is
+    set)."""
+    mg = getattr(p, "mg", None)
+    x = tpar.copy_to(x, mg)
     h = x @ p.w_in.to(BF16)
     if kind == "swiglu":
         g = x @ p.w_gate.to(BF16)
@@ -63,4 +72,4 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(h.to(F32), approximate="tanh").to(BF16)
     else:
         raise ValueError(kind)
-    return h @ p.w_out.to(BF16)
+    return tpar.row_parallel(h, p.w_out, mg)

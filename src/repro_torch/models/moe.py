@@ -11,6 +11,16 @@ the reference's one-hot ``(G, S, E, C)`` products: each output sums at
 most one product (dispatch) or ``top_k`` products (combine) in f32, so
 they equal a gather and a scatter.  The expert products are batched
 matrix products over ``E``.
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) the experts
+are split over the model group where ``tp`` divides ``E`` (expert
+parallel: a rank runs its experts on the tokens dispatched to them and the
+combine's f32 partial sums are reduced over the group), else each
+expert's ``d_ff`` where ``tp`` divides it (column- and row-parallel, the
+expert outputs reduced before the combine), else the layer runs whole.
+The router and the capacity positions are computed on every rank from the
+same replicated input and weights, so the routing is bitwise the same on
+all of them.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import math
 
 import torch
 
+from ..distributed import tensor_parallel as tpar
 from .layers import BF16, F32, dense_init, param, silu
 
 
@@ -94,6 +105,16 @@ def route(p, xg: torch.Tensor, cfg):
     return choices, combined, aux
 
 
+def _experts(p, xin: torch.Tensor, mg=None) -> torch.Tensor:
+    """The expert MLPs over their dispatched rows ``xin (E, GC, D)`` ->
+    ``(E, GC, D)`` bf16; with ``mg``, each expert's ``d_ff`` is this
+    rank's slice and the row-parallel partial products are reduced."""
+    h = torch.bmm(xin, p.w_in.to(BF16))                        # (E,GC,F)
+    gt = torch.bmm(xin, p.w_gate.to(BF16))
+    h = silu(gt.to(F32)).to(BF16) * h
+    return tpar.row_parallel(h, p.w_out, mg)           # batched over E
+
+
 def moe_apply(p, x: torch.Tensor, cfg):
     """x: ``(B, S, D)`` bf16 -> (``(B, S, D)`` bf16, the load-balancing
     aux loss, an f32 scalar)."""
@@ -111,13 +132,23 @@ def moe_apply(p, x: torch.Tensor, cfg):
     cap = combined.shape[-1]
 
     dispatch = (combined > 0).to(BF16)                         # (G,S,E,C)
-    xin = torch.einsum("gsd,gsec->egcd", xg, dispatch).reshape(
-        e_n, g * cap, d)
-    h = torch.bmm(xin, p.w_in.to(BF16))                        # (E,GC,F)
-    gt = torch.bmm(xin, p.w_gate.to(BF16))
-    h = silu(gt.to(F32)).to(BF16) * h
-    out = torch.bmm(h, p.w_out.to(BF16)).view(e_n, g, cap, d)  # (E,G,C,D)
-    y = torch.einsum("egcd,gsec->gsd", out, combined.to(BF16))
+    mg, mode = getattr(p, "mg", None), getattr(p, "tp_mode", None)
+    if mode == "experts":       # this rank's experts alone
+        el = p.w_in.shape[0]
+        e0 = mg.rank * el
+        mine = slice(e0, e0 + el)
+        xin = torch.einsum("gsd,gsec->egcd", tpar.copy_to(xg, mg),
+                           dispatch[:, :, mine]).reshape(el, g * cap, d)
+        out = _experts(p, xin).view(el, g, cap, d)
+        comb = tpar.copy_to(combined, mg)[:, :, mine]
+        y = torch.einsum("egcd,gsec->gsd", out.to(F32),
+                         comb.to(BF16).to(F32))
+        y = tpar.reduce_from(y, mg).to(BF16)
+    else:
+        xin = torch.einsum("gsd,gsec->egcd", xg, dispatch).reshape(
+            e_n, g * cap, d)
+        out = _experts(p, tpar.copy_to(xin, mg), mg).view(e_n, g, cap, d)
+        y = torch.einsum("egcd,gsec->gsd", out, combined.to(BF16))
     y = y.reshape(g * gs, d)
     if pad:
         y = y[:tokens]

@@ -15,6 +15,15 @@ chunk)``); within a chunk the recurrence is stepped in order in f32 where
 the reference runs an associative scan, so a state differs from the
 reference's by f32 rounding only.  Decode is the O(1) step.  Training
 runs :func:`rglru_apply` under autograd; no op writes in place.
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) the width
+``W`` is split over the model group: ``in_proj`` is column-parallel (a
+rank's slice of the ``x`` half and of the gate half: the ``"halves"``
+layout), ``conv_w`` local, ``wr``/``wi`` row-parallel (each gate's partial
+products reduced, then the rank's columns kept), ``out_proj``
+row-parallel; ``conv_b`` and ``lam`` are split where the rules shard them
+(1,024 and up) and sliced locally otherwise.  The state ``h`` and the conv
+window hold the rank's channels.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tpar
 from .layers import (BF16, F32, dense_init, depthwise_conv, param,
                      softplus)
 
@@ -60,11 +70,18 @@ class RGLRU(torch.nn.Module):
         self.lam.fill_(2.0)
 
 
+def _gate(p, u: torch.Tensor, w: str = "wr") -> torch.Tensor:
+    """``u @ w`` in bf16; row-parallel under a group, this rank's columns
+    kept."""
+    mg = getattr(p, "mg", None)
+    return tpar.split(tpar.row_parallel(u, getattr(p, w), mg), -1, mg)
+
+
 def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """u: bf16 ``(B, L, W)`` -> f32 ``a`` and the gated input."""
-    r = torch.sigmoid((u @ p.wr.to(BF16)).to(F32))
-    i = torch.sigmoid((u @ p.wi.to(BF16)).to(F32))
-    log_a = -_C * softplus(p.lam) * r                       # (B,L,W)
+    r = torch.sigmoid(_gate(p, u).to(F32))
+    i = torch.sigmoid(_gate(p, u, "wi").to(F32))
+    log_a = -_C * softplus(tpar.local_of(p, "lam")) * r      # (B,L,W)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u.to(F32))
     return a, gated
@@ -72,7 +89,7 @@ def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _out(p, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     y = h.to(BF16) * F.gelu(g.to(F32), approximate="tanh").to(BF16)
-    return y @ p.out_proj.to(BF16)
+    return tpar.row_parallel(y, p.out_proj, getattr(p, "mg", None))
 
 
 def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
@@ -81,7 +98,7 @@ def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
     (out ``(B, S, D)``, the f32 state ``(B, W)`` after the last token)."""
     b, s_len, w = u_raw.shape
     u = depthwise_conv(F.pad(u_raw, (0, 0, 3, 0)), p.conv_w.to(BF16),
-                       p.conv_b.to(BF16), s_len)
+                       tpar.local_of(p, "conv_b").to(BF16), s_len)
     if state is None:
         state = torch.zeros((b, w), dtype=F32, device=u.device)
     nch = max(1, s_len // chunk)
@@ -96,26 +113,36 @@ def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
     return _out(p, torch.stack(hs, dim=1), g), state
 
 
+def in_proj(p, x: torch.Tensor):
+    """``x (B, S, D)`` -> the conv input and the gate branch, ``(B, S,
+    W)`` bf16 each (this rank's channels)."""
+    h = tpar.copy_to(x, getattr(p, "mg", None)) @ p.in_proj.to(BF16)
+    return h.chunk(2, dim=-1)
+
+
 def rglru_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,
                 return_state: bool = False):
     """x: ``(B, S, D)`` bf16 -> ``(B, S, D)`` (and the f32 state ``(B, W)``
     after the last token)."""
-    u, g = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)
+    u, g = in_proj(p, x)
     out, state = rglru_mix(p, u, g, cfg, chunk=chunk, state=state)
     return (out, state) if return_state else out
 
 
-def init_rglru_cache(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
-    w = cfg.lru_width or cfg.d_model
+def init_rglru_cache(cfg, batch: int, device=None,
+                     width: int = 0) -> Dict[str, torch.Tensor]:
+    """Zero states of ``width`` channels (default all of the width)."""
+    w = width or cfg.lru_width or cfg.d_model
     return {"conv": torch.zeros((batch, 3, w), dtype=BF16, device=device),
             "h": torch.zeros((batch, w), dtype=F32, device=device)}
 
 
 def rglru_decode(p, x: torch.Tensor, cache, cfg):
     """x: ``(B, 1, D)`` one token -> (out, the new ``{"conv", "h"}``)."""
-    u, g = (x @ p.in_proj.to(BF16)).chunk(2, dim=-1)        # (B,1,W)
+    u, g = in_proj(p, x)                                    # (B,1,W)
     win = torch.cat([cache["conv"], u], dim=1)              # (B,4,W)
-    u1 = depthwise_conv(win, p.conv_w.to(BF16), p.conv_b.to(BF16), 1)
+    u1 = depthwise_conv(win, p.conv_w.to(BF16),
+                        tpar.local_of(p, "conv_b").to(BF16), 1)
     a, gated = _gates(p, u1)
     h = a[:, 0] * cache["h"] + gated[:, 0]
     return _out(p, h[:, None], g), {"conv": win[:, 1:], "h": h}

@@ -20,6 +20,17 @@ place.  :func:`forward_train` checkpoints the reference's remat unit, one
 repetition of a segment's pattern, under a policy of
 :data:`REMAT_POLICIES` (``torch.utils.checkpoint``, non-reentrant); a
 policy changes memory, never values.
+
+``tp`` pads the Q heads to ``cfg.padded_heads(tp)``, as the reference's
+``init_params(key, cfg, tp)``; the forward code is the same at every
+``tp``.  A model ``distributed.tensor_parallel.shard_model`` has sharded
+runs each layer's share on its rank; where the rules split ``embed`` over
+``"model"`` the embedding is vocab-parallel (each rank looks up the
+tokens in its rows, the rows summed over the group), the tied head gives
+the rank's columns of the logits, :func:`loss_fn` is a vocab-parallel
+cross-entropy (the max, the sum of exponentials and the target logit each
+reduced over the group: the ``(B, S, V)`` logits are never gathered), and
+the prefill and decode gather their ``(B, V)`` logits.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.env import resolve_device
+from ..distributed import tensor_parallel as tpar
 from . import attention as attn
 from . import blocks
 from .layers import (BF16, F32, dense_init, embed_lookup, param, rms_norm,
@@ -68,19 +80,19 @@ REMAT_POLICIES = {
 
 class Transformer(torch.nn.Module):
     """``embed (V, D)`` (tied with the head), ``final_norm (D,)`` and one
-    :class:`~.blocks.Block` per layer in execution order.  ``dtype`` is
-    the matrices' (bf16 to serve; f32 to train, and then every parameter
-    requires a gradient)."""
+    :class:`~.blocks.Block` per layer in execution order, the Q heads
+    padded at ``tp``.  ``dtype`` is the matrices' (bf16 to serve; f32 to
+    train, and then every parameter requires a gradient)."""
 
-    def __init__(self, cfg, *, device=None, dtype=BF16):
+    def __init__(self, cfg, *, tp: int = 1, device=None, dtype=BF16):
         super().__init__()
         if dtype not in (BF16, F32):
             raise ValueError(f"a model's dtype is bf16 or f32, not {dtype}")
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, tp
         self.embed = param((cfg.vocab_size, cfg.d_model), device, dtype)
         self.final_norm = param((cfg.d_model,), device, F32)
         self.layers = torch.nn.ModuleList(
-            blocks.Block(kind, cfg, device=device, dtype=dtype)
+            blocks.Block(kind, cfg, tp=tp, device=device, dtype=dtype)
             for kind in blocks.layer_kinds(cfg))
         self.requires_grad_(dtype == F32)
 
@@ -90,13 +102,14 @@ class Transformer(torch.nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg, seed: int = 0, *, device=None,
+def init_params(cfg, seed: int = 0, *, tp: int = 1, device=None,
                 dtype=BF16) -> Transformer:
-    """A model with the reference's init scales, drawn on ``device``
-    (default CUDA) from ``torch.Generator(device).manual_seed(seed)``;
-    ``dtype=F32`` gives trainable f32 master weights."""
+    """A model with the reference's init scales (Q heads padded at ``tp``,
+    the padded heads zero), drawn on ``device`` (default CUDA) from
+    ``torch.Generator(device).manual_seed(seed)``; ``dtype=F32`` gives
+    trainable f32 master weights."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, dtype=dtype)
+    model = Transformer(cfg, tp=tp, device=dev, dtype=dtype)
     g = torch.Generator(device=dev).manual_seed(int(seed))
     d = cfg.d_model
     model.embed.copy_(dense_init(g, model.embed.shape, d ** -0.5))
@@ -118,9 +131,11 @@ def _leaves(tree, prefix: str = "") -> Dict[str, object]:
 
 
 @torch.no_grad()
-def params_from_jax(tree, cfg, device=None, dtype=BF16) -> Transformer:
-    """The JAX package's ``init_params`` pytree (numpy arrays, f32) as a
-    :class:`Transformer` of ``dtype`` on ``device`` (default CUDA).
+def params_from_jax(tree, cfg, device=None, dtype=BF16, *,
+                    tp: int = 1) -> Transformer:
+    """The JAX package's ``init_params(key, cfg, tp)`` pytree (numpy
+    arrays, f32) as a :class:`Transformer` of ``dtype`` on ``device``
+    (default CUDA), its heads padded at ``tp``.
     Segment ``si``'s params are stacked over a leading axis ``n``; layer
     ``j`` of the segment takes index ``j`` of every leaf
     (:func:`reference_paths`).  A block's parameter names are the
@@ -128,7 +143,7 @@ def params_from_jax(tree, cfg, device=None, dtype=BF16) -> Transformer:
     ``mamba.A_log``, ``xattn.wo``, ``mlp.w_gate``, ``norm2``); a leaf
     missing on either side or of another shape raises ``ValueError``."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, dtype=dtype)
+    model = Transformer(cfg, tp=tp, device=dev, dtype=dtype)
     src, paths = _leaves(tree), reference_paths(model)
     want = {path for path, _ in paths.values()}
     if set(src) != want:
@@ -173,10 +188,43 @@ def stacked_rank(name: str, p: torch.Tensor) -> int:
     return p.dim() + name.startswith("layers.")
 
 
+def _vocab(model):
+    """(the group the embedding's rows are split over or None, the first
+    row this rank holds)."""
+    mg = getattr(model, "vocab_mg", None)
+    return mg, (mg.rank * model.embed.shape[0] if mg is not None else 0)
+
+
+def _lookup(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the embedding as bf16 activations; vocab
+    parallel, each rank's own rows (zero elsewhere) summed over the
+    group."""
+    mg, v0 = _vocab(model)
+    if mg is None:
+        return embed_lookup(model.embed, tokens)
+    vl = model.embed.shape[0]
+    ids = tokens.long() - v0
+    mine = (ids >= 0) & (ids < vl)
+    rows = embed_lookup(model.embed, ids.clamp(0, vl - 1))
+    return tpar.reduce_from(torch.where(mine[..., None], rows,
+                                        rows.new_zeros(())), mg)
+
+
+def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The tied head: ``x (..., D)`` -> logits ``(..., V)`` bf16, this
+    rank's columns where the vocabulary is split."""
+    mg, _ = _vocab(model)
+    return tpar.copy_to(x, mg) @ model.embed.to(BF16).t()
+
+
+def _gathered(model: Transformer, logits: torch.Tensor) -> torch.Tensor:
+    return tpar.gather(logits, -1, _vocab(model)[0])
+
+
 def _input_embeds(model: Transformer, batch, cfg) -> torch.Tensor:
     if cfg.embed_stub and "frames" in batch:
         return batch["frames"].to(BF16)
-    return embed_lookup(model.embed, batch["tokens"])
+    return _lookup(model, batch["tokens"])
 
 
 def _rope(positions: torch.Tensor, cfg):
@@ -217,7 +265,8 @@ def forward_train(model: Transformer, batch, cfg,
                   remat_policy: Optional[str] = "full"):
     """``batch``: ``tokens`` (or ``frames`` for an ``embed_stub`` arch; plus
     ``image_embeds`` for ``xattn`` layers) -> (logits ``(B, S, V)`` bf16,
-    the summed MoE aux loss, an f32 scalar).  Each repetition of a
+    this rank's columns where the vocabulary is split; the summed MoE aux
+    loss, an f32 scalar).  Each repetition of a
     segment's pattern runs under ``remat_policy``."""
     x = _input_embeds(model, batch, cfg)
     img = batch.get("image_embeds")
@@ -237,7 +286,7 @@ def forward_train(model: Transformer, batch, cfg,
             if a is not None:
                 aux = a if aux is None else aux + a
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = x @ model.embed.to(BF16).t()
+    logits = _head(model, x)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=x.device)
     return logits, aux
@@ -251,9 +300,22 @@ def loss_fn(model: Transformer, batch, cfg,
     (the same number, without a ``(B, S, V)`` f32 one-hot)."""
     logits, aux = forward_train(model, batch, cfg, remat_policy)
     logits = logits.to(F32)
-    m = logits.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    labels = batch["labels"].long()
+    mg, v0 = _vocab(model)
+    if mg is None:
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        tgt = logits.gather(-1, labels[..., None])[..., 0]
+    else:       # vocab parallel: three reductions over the group
+        m = tpar.reduce_from(logits.detach().amax(dim=-1, keepdim=True), mg,
+                             torch.distributed.ReduceOp.MAX)
+        total = tpar.reduce_from(torch.exp(logits - m).sum(dim=-1), mg)
+        lse = torch.log(total) + m[..., 0]
+        vl = logits.shape[-1]
+        ids = labels - v0
+        mine = (ids >= 0) & (ids < vl)
+        own = logits.gather(-1, ids.clamp(0, vl - 1)[..., None])[..., 0]
+        tgt = tpar.reduce_from(torch.where(mine, own, own.new_zeros(())), mg)
     nll = (lse - tgt).mean()
     if cfg.moe is not None:
         nll = nll + cfg.moe.aux_loss_weight * aux
@@ -262,18 +324,22 @@ def loss_fn(model: Transformer, batch, cfg,
 
 # ---- serving ------------------------------------------------------------------
 
-def init_caches(cfg, batch: int, max_seq: int, device=None) -> Caches:
-    """Zeroed caches, one dict per layer, on ``device`` (default CUDA)."""
-    dev = resolve_device(device)
+def init_caches(cfg, batch: int, max_seq: int, device=None, *,
+                tp: int = 1) -> Caches:
+    """Zeroed caches, one dict per layer, on ``device`` (default CUDA;
+    ``"meta"`` for shapes alone); at ``tp > 1`` the pieces one rank of the
+    model group holds (``sharding.cache_pspec``)."""
+    dev = device if str(device) == "meta" else resolve_device(device)
     spec = attn.cache_spec(cfg, max_seq)
-    return [blocks.init_layer_cache(kind, cfg, spec, batch, dev)
+    return [blocks.init_layer_cache(kind, cfg, spec, batch, dev, tp)
             for kind in blocks.layer_kinds(cfg)]
 
 
 def forward_prefill(model: Transformer, batch, cfg, max_seq: int):
     """Prompt ``{"tokens": (B, S)}`` (or ``{"frames": (B, S, D)}`` for an
     ``embed_stub`` arch; ``"image_embeds": (B, N, D)`` for ``xattn``
-    layers) -> (last-token logits ``(B, V)`` bf16, caches)."""
+    layers) -> (last-token logits ``(B, V)`` bf16, caches: this rank's
+    pieces on a sharded model)."""
     x = _input_embeds(model, batch, cfg)
     img = batch.get("image_embeds")
     if img is not None:
@@ -289,7 +355,7 @@ def forward_prefill(model: Transformer, batch, cfg, max_seq: int):
                                           cfg, spec, tables, img)
         caches.append(c)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x[:, -1] @ model.embed.to(BF16).t(), caches
+    return _gathered(model, _head(model, x[:, -1])), caches
 
 
 def forward_decode(model: Transformer, batch, caches: Caches, cfg,
@@ -297,11 +363,12 @@ def forward_decode(model: Transformer, batch, caches: Caches, cfg,
     """One-token step: ``{"token": (B,), "pos": (B,)}`` -> (logits ``(B,
     V)`` bf16, caches updated in place)."""
     pos = batch["pos"]
-    x = embed_lookup(model.embed, batch["token"][:, None])
+    x = _lookup(model, batch["token"][:, None])
     tables = _rope(pos[:, None], cfg)
     spec = attn.cache_spec(cfg, max_seq)
     for layer, cache in zip(model.layers, caches):
         x, _ = blocks.apply_layer_decode(layer.kind, layer, x, pos, cache,
                                          spec, cfg, tables)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x[:, 0] @ model.embed.to(BF16).t(), caches
+    logits = _head(model, x[:, 0])
+    return _gathered(model, logits), caches

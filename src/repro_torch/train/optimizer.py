@@ -79,15 +79,22 @@ def global_norm(leaves: Iterable[torch.Tensor],
 
 
 @torch.no_grad()
+def scale_grads(grads: Dict[str, torch.Tensor], norm: torch.Tensor,
+                max_norm: float) -> None:
+    """Scale every gradient, in place, by ``min(1, max_norm / norm)``."""
+    scale = torch.clamp(torch.div(norm.new_tensor(max_norm),
+                                  torch.clamp_min(norm, 1e-12)), max=1.0)
+    for t in grads.values():
+        t.mul_(scale)
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
                         scratch: Optional[torch.Tensor] = None):
     """Scale every gradient, in place, by ``min(1, max_norm / norm)``;
     returns ``(grads, norm)``, the norm before the clip."""
     g = global_norm(grads.values(), scratch)
-    scale = torch.clamp(torch.div(g.new_tensor(max_norm),
-                                  torch.clamp_min(g, 1e-12)), max=1.0)
-    for t in grads.values():
-        t.mul_(scale)
+    scale_grads(grads, g, max_norm)
     return grads, g
 
 

@@ -6,7 +6,9 @@ moments and ``error`` the gradient compression's error feedback, each a
 tensor of its parameter's shape.  ``checkpoint/io.py`` lays them out as
 the reference's stacked leaves on disk.  A ZeRO-1 state
 (``train.step.make_zero1_local_state``) keys its flat moments by the
-reference's leaf paths instead.
+reference's leaf paths instead.  On a model that
+``distributed.tensor_parallel.shard_model`` has sharded, the moments and
+the error buffer are the rank's pieces, as its parameters are.
 """
 from __future__ import annotations
 
@@ -44,9 +46,11 @@ def init_state(model: torch.nn.Module, *,
                       zeros_like_params(model), err)
 
 
-def abstract_state(cfg, *, compression: bool = False) -> TrainState:
-    """:func:`init_state` of an f32 model of ``cfg`` on the ``meta``
-    device: every shape and dtype, no storage."""
+def abstract_state(cfg, *, tp: int = 1,
+                   compression: bool = False) -> TrainState:
+    """:func:`init_state` of an f32 model of ``cfg`` (heads padded at
+    ``tp``) on the ``meta`` device: every shape and dtype, no storage."""
     from ..models.transformer import Transformer
-    return init_state(Transformer(cfg, device="meta", dtype=torch.float32),
+    return init_state(Transformer(cfg, tp=tp, device="meta",
+                                  dtype=torch.float32),
                       compression=compression)

@@ -21,6 +21,22 @@ reference_paths``): a ZeRO-1 shard of ``seg0.sub0.mlp.w_in`` spans layer
 boundaries, and the int8 scale is one per stacked leaf.  So both gather a
 leaf's per-layer gradients into one flat buffer in stacked order (each
 layer's ``.grad`` freed as it is copied) before they quantize or scatter.
+
+On a ``("data", "model")`` mesh with a model axis > 1 the model is one
+that ``distributed.tensor_parallel.shard_model`` has sharded: each rank
+runs the tensor-parallel forward and backward on its shard and the
+gradients are reduced over the data axes alone.  The f32 all-reduce is
+elementwise, so it reduces each rank's shard as it is.  The int8
+all-reduce and ZeRO-1 work on the reference's *logical* leaf (one scale a
+leaf, a flat split into ``n`` segments), so per leaf they gather the
+sharded gradient over ``"model"`` first, run the reduction unchanged and
+keep the rank's slice: the payloads stay bitwise the reference's, at the
+cost of one whole leaf held at a time.  The gradient norm counts each
+logical element once (the sharded leaves' squares summed over the model
+group, the whole ones taken once).  ZeRO-1 keeps the reference's moment
+layout, ``(n_dp, ceil(P / (n_dp tp)) tp)`` split over ``("data",
+"model")``: a rank updates its ``1 / tp`` of its data shard against its
+block of the moments, and the updated shard is gathered over both axes.
 """
 from __future__ import annotations
 
@@ -32,16 +48,15 @@ import torch.distributed as dist
 
 from ..distributed.collectives import (all_gather_flat, axis_group,
                                        mesh_device, reduce_scatter)
+from ..distributed import tensor_parallel as tpar
 from ..distributed.compression import compress_with_feedback, int8_allreduce_
-from ..distributed.sharding import mesh_axes
+from ..distributed.sharding import mesh_axes, whole_shape
 from ..models.transformer import loss_fn, reference_paths, stacked_rank
 from .optimizer import (OptimizerConfig, adamw_update, clip_by_global_norm,
-                        make_scratch, schedule)
+                        make_scratch, scale_grads, schedule)
 from .state import TrainState
 
 F32 = torch.float32
-TP_SLICE = ("tensor parallelism waits for the port's tensor-parallel slice "
-            "(tp through the models, padded heads and a model-axis forward)")
 
 
 def _backward(model, batch, cfg, remat_policy, accum_steps: int):
@@ -122,24 +137,85 @@ def reference_leaves(model) -> Dict[str, Members]:
             for path in sorted(found)}
 
 
-def _flat_grads(members: Members, size: int) -> torch.Tensor:
-    """The members' gradients in stacked order in one f32 buffer of
+def _logical(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The whole value of parameter ``name``'s piece ``t`` (its gradient
+    or itself): gathered over the model group where it is sharded."""
+    return tpar.whole(t, getattr(model, "layouts", {}).get(name),
+                      getattr(model, "mg", None))
+
+
+def _flat_grads(members: Members, size: int, model=None) -> torch.Tensor:
+    """The members' whole gradients in stacked order in one f32 buffer of
     ``size`` (zero past their end); each ``.grad`` is freed once it is
     copied."""
     p0 = members[0][1]
     flat = torch.empty(size, dtype=F32, device=p0.device)
     off = 0
-    for _, p in members:
-        k = p.numel()
-        flat[off:off + k].copy_(p.grad.reshape(-1))
+    for name, p in members:
+        g = _logical(model, name, p.grad) if model is not None else p.grad
+        k = g.numel()
+        flat[off:off + k].copy_(g.reshape(-1))
         p.grad = None
         off += k
     flat[off:].zero_()
     return flat
 
 
-def _leaf_size(members: Members) -> int:
-    return sum(p.numel() for _, p in members)
+def _unflatten(members: Members, flat: torch.Tensor, model, grad: bool):
+    """Each member's piece of the whole values ``flat`` (stacked order)
+    into its ``.grad`` (``grad``) or the parameter itself."""
+    mg = getattr(model, "mg", None)
+    lay = getattr(model, "layouts", {})
+    off = 0
+    for name, p in members:
+        shape = whole_shape(model, name)
+        k = math.prod(shape)
+        t = flat[off:off + k].view(shape)
+        if mg is not None:
+            t = tpar.take(t, lay.get(name), mg.rank, mg.size)
+        if grad:
+            p.grad = t if mg is None else t.contiguous()
+        else:
+            p.copy_(t)
+        off += k
+
+
+def _leaf_size(members: Members, model=None) -> int:
+    if model is None:
+        return sum(p.numel() for _, p in members)
+    return sum(math.prod(whole_shape(model, n)) for n, _ in members)
+
+
+def int8_reduce_leaf_(model, members: Members, groups, factor: float) -> None:
+    """One reference leaf's gradients (``members``, stacked order) times
+    ``factor``, int8-all-reduced over each data group in turn on the whole
+    leaf (gathered over the model group on a sharded model), each
+    member's piece written back into its ``.grad``."""
+    tp_model = model if getattr(model, "mg", None) is not None else None
+    size = _leaf_size(members, tp_model)
+    padded = [-(-size // g.size()) * g.size() for g in groups]
+    flat = _flat_grads(members, max(padded), tp_model).mul_(factor)
+    for g, length in zip(groups, padded):
+        int8_allreduce_(flat[:length], g)          # padded to its own n
+    _unflatten(members, flat, model, grad=True)
+
+
+def _grad_norm(model, mg) -> torch.Tensor:
+    """The global norm of the model's gradients, each logical element
+    counted once: the sharded leaves' squares summed over the model
+    group, the whole ones (equal on every rank) added once."""
+    lay = getattr(model, "layouts", {})
+    sharded, whole_sq = None, None
+    for name, p in model.named_parameters():
+        sq = torch.sum(p.grad * p.grad)
+        if lay.get(name) is not None:
+            sharded = sq if sharded is None else sharded + sq
+        else:
+            whole_sq = sq if whole_sq is None else whole_sq + sq
+    if sharded is not None:
+        dist.all_reduce(sharded, group=mg.group)
+        whole_sq = sharded if whole_sq is None else whole_sq + sharded
+    return torch.sqrt(whole_sq)
 
 
 # ---- the data-parallel step ----------------------------------------------------
@@ -159,9 +235,7 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
     :func:`make_zero1_local_state`.  ``metrics``: the loss averaged over
     the ranks, the gradient norm before the clip, the learning rate."""
     axes = mesh_axes(mesh)
-    if axes.get("model", 1) > 1:
-        raise NotImplementedError(f"a mesh with a 'model' axis of "
-                                  f"{axes['model']}: {TP_SLICE}")
+    mg = tpar.model_group(mesh)
     manual = tuple(a for a in batch_axes if a in axes)
     if not manual:
         raise ValueError(f"the mesh {tuple(axes)} has none of the batch "
@@ -182,37 +256,33 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
         return x
 
     def reduce_replicated(model, inv):
-        """The f32 all-reduce (or the int8 one) of every gradient, scaled
-        by ``inv / n`` first; the reduced gradients by parameter name."""
+        """The f32 all-reduce (or the int8 one) of every gradient over the
+        data axes, scaled by ``inv / n`` first; the reduced gradients by
+        parameter name (this rank's shards)."""
         if not int8_allreduce:
             for p in model.parameters():
                 p.grad.mul_(inv / n)
                 for g, _, _ in groups:
                     dist.all_reduce(p.grad, group=g)
             return {name: p.grad for name, p in model.named_parameters()}
-        for path, members in reference_leaves(model).items():
-            size = _leaf_size(members)
-            padded = [-(-size // d) * d for _, d, _ in groups]
-            flat = _flat_grads(members, max(padded)).mul_(inv / n)
-            for (g, _, _), length in zip(groups, padded):
-                int8_allreduce_(flat[:length], g)    # padded to its own n
-            off = 0
-            for _, p in members:
-                p.grad = flat[off:off + p.numel()].view(p.shape)
-                off += p.numel()
-            del flat
+        for members in reference_leaves(model).values():
+            int8_reduce_leaf_(model, members, [g for g, _, _ in groups],
+                              inv / n)
         return {name: p.grad for name, p in model.named_parameters()}
 
     def zero1_update(state, inv):
         """Reduce-scatter, clip and Adam on this rank's shard of each
-        leaf, then all-gather the updated shard into the parameters.
-        Returns ``(grad_norm, lr)``."""
+        leaf (its ``1 / tp`` of the data shard under a model group), then
+        all-gather the updated shard into the parameters.  Returns
+        ``(grad_norm, lr)``."""
         model = state.params
+        tp_model = model if mg is not None else None
+        tp, j = (mg.size, mg.rank) if mg is not None else (1, 0)
         leaves = reference_leaves(model)
         gshard = {}
         for path, members in leaves.items():
-            c = -(-_leaf_size(members) // n0)
-            flat = _flat_grads(members, n0 * c).mul_(inv)
+            c = -(-_leaf_size(members, tp_model) // n0)
+            flat = _flat_grads(members, n0 * c, tp_model).mul_(inv)
             out = torch.empty(c, dtype=F32, device=flat.device)
             reduce_scatter(out, flat, group0)
             del flat
@@ -230,16 +300,18 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
             g = gshard.pop(path).mul_(scale)
             m, v = _local_row(state.mu[path], k0), _local_row(state.nu[path],
                                                                k0)
-            if m.numel() != g.numel():
-                raise ValueError(f"zero1 moments of {path} hold {m.numel()} "
-                                 f"elements a rank, its gradient shard "
-                                 f"{g.numel()}")
             c = g.numel()
+            if m.numel() * tp != c:
+                raise ValueError(f"zero1 moments of {path} hold "
+                                 f"{m.numel() * tp} elements a data rank, "
+                                 f"its gradient shard {c}")
+            cm = c // tp
+            g = g[j * cm:(j + 1) * cm]
             m.mul_(oc.b1).add_(g, alpha=1 - oc.b1)
             v.mul_(oc.b2).addcmul_(g, g, value=1 - oc.b2)
             gathered = torch.empty(n0 * c, dtype=F32, device=g.device)
-            pshard = gathered[k0 * c:(k0 + 1) * c]
-            _copy_span(members, k0 * c, pshard)
+            pshard = gathered[k0 * c + j * cm:k0 * c + (j + 1) * cm]
+            _copy_span(members, k0 * c + j * cm, pshard, tp_model)
             s = torch.div(v, bc2).sqrt_().add_(oc.eps)
             u = torch.div(m, bc1, out=g).div_(s)
             del s
@@ -247,17 +319,22 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
                 u.add_(pshard, alpha=oc.weight_decay)
             pshard.sub_(u.mul_(lr))
             del g, u
-            all_gather_flat(gathered, pshard, group0)
-            off = 0
-            for _, p in members:
-                p.copy_(gathered[off:off + p.numel()].view(p.shape))
-                off += p.numel()
-            del gathered, pshard
+            mine = gathered[k0 * c:(k0 + 1) * c]
+            if mg is not None:
+                all_gather_flat(mine, pshard, mg.group)
+            all_gather_flat(gathered, mine, group0)
+            _unflatten(members, gathered, model, grad=False)
+            del gathered, pshard, mine
         return gnorm, lr
 
     def train_step(state: TrainState, batch):
         model = state.params
         dev = state.step.device
+        have = getattr(model, "mg", None)
+        if mg is not None and (have is None or have.group is not mg.group):
+            raise ValueError(f"a mesh with a 'model' axis of {mg.size} "
+                             f"needs a model that tensor_parallel."
+                             f"shard_model has sharded over it")
         b = next(iter(batch.values())).shape[0]
         if b % n:
             raise ValueError(f"global batch {b} does not split over "
@@ -274,8 +351,12 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
             else:
                 grads = reduce_replicated(model, inv)
                 scratch = make_scratch(grads.values())
-                grads, gnorm = clip_by_global_norm(grads, oc.clip_norm,
-                                                   scratch)
+                if mg is None:
+                    grads, gnorm = clip_by_global_norm(grads, oc.clip_norm,
+                                                       scratch)
+                else:
+                    gnorm = _grad_norm(model, mg)
+                    scale_grads(grads, gnorm, oc.clip_norm)
                 _, mu, nu, lr = adamw_update(
                     dict(model.named_parameters()), grads, state.mu,
                     state.nu, state.step, oc, scratch)
@@ -294,16 +375,17 @@ def _local_row(t: torch.Tensor, k: int) -> torch.Tensor:
     return to_local()[0] if to_local is not None else t[k]
 
 
-def _copy_span(members: Members, start: int, out: torch.Tensor) -> None:
+def _copy_span(members: Members, start: int, out: torch.Tensor,
+               model=None) -> None:
     """``out`` := elements ``[start, start + len(out))`` of the members'
-    parameters flattened in stacked order (zero past their end)."""
+    whole parameters flattened in stacked order (zero past their end)."""
     end, off, pos = start + out.numel(), 0, 0
-    for _, p in members:
-        k = p.numel()
+    for name, p in members:
+        w = p.detach() if model is None else _logical(model, name, p.detach())
+        k = w.numel()
         lo, hi = max(start, off), min(end, off + k)
         if lo < hi:
-            out[pos:pos + hi - lo].copy_(p.detach().reshape(-1)[lo - off:
-                                                               hi - off])
+            out[pos:pos + hi - lo].copy_(w.reshape(-1)[lo - off:hi - off])
             pos += hi - lo
         off += k
     out[pos:].zero_()
@@ -318,25 +400,30 @@ def make_zero1_local_state(model, n_dp: int, tp: int = 1, *,
     zero moments of shape ``(n_dp, size / n_dp)``, ``size`` the leaf's
     element count rounded up to a multiple of ``n_dp * tp`` (the
     reference's layout).  With ``mesh`` each moment is a ``DTensor``
-    sharded over ``"data"`` (``Shard(0)``; replicated over any other
-    axis) and a rank holds its row alone; without, whole tensors on the
-    model's device."""
+    sharded over ``"data"`` on dim 0 and, where ``tp > 1``, over
+    ``"model"`` on dim 1 (the reference's ``("data", "model")`` layout),
+    and a rank holds its block alone; without, whole tensors on the
+    model's device.  A sharded model's leaves count whole."""
     dev = next(model.parameters()).device
+    tp_model = model if getattr(model, "mg", None) is not None else None
     if mesh is not None:
         from torch.distributed.tensor import DTensor, Replicate, Shard
         axes = mesh_axes(mesh)
-        if axes.get("data") != n_dp:
-            raise ValueError(f"n_dp={n_dp} but the mesh's data axis has "
-                             f"{axes.get('data')} ranks")
-        placements = [Shard(0) if a == "data" else Replicate() for a in axes]
+        if axes.get("data") != n_dp or axes.get("model", 1) != tp:
+            raise ValueError(f"n_dp={n_dp}, tp={tp} but the mesh has "
+                             f"{axes}")
+        placements = [Shard(0) if a == "data" else
+                      Shard(1) if a == "model" and tp > 1 else Replicate()
+                      for a in axes]
         dev = mesh_device(mesh)
 
     def flat(members):
-        size = -(-_leaf_size(members) // (n_dp * tp)) * (n_dp * tp)
+        size = -(-_leaf_size(members, tp_model) // (n_dp * tp)) * (n_dp * tp)
         c = size // n_dp
         if mesh is None:
             return torch.zeros((n_dp, c), dtype=F32, device=dev)
-        return DTensor.from_local(torch.zeros((1, c), dtype=F32, device=dev),
+        return DTensor.from_local(torch.zeros((1, c // tp), dtype=F32,
+                                              device=dev),
                                   mesh, placements, run_check=False,
                                   shape=(n_dp, c), stride=(c, 1))
 
@@ -347,6 +434,8 @@ def make_zero1_local_state(model, n_dp: int, tp: int = 1, *,
 
 
 def abstract_zero1_local_state(cfg, n_dp: int, tp: int = 1) -> TrainState:
-    """:func:`make_zero1_local_state`'s shapes on the ``meta`` device."""
+    """:func:`make_zero1_local_state`'s shapes on the ``meta`` device,
+    the heads padded at ``tp``."""
     from .state import abstract_state
-    return make_zero1_local_state(abstract_state(cfg).params, n_dp, tp)
+    return make_zero1_local_state(abstract_state(cfg, tp=tp).params, n_dp,
+                                  tp)

@@ -1076,3 +1076,34 @@ def test_zero1_step_in_an_nccl_world_of_one(cuda_device, tmp_path):
                                        atol=5e-5)
     finally:
         dist.destroy_process_group()
+
+
+def test_tensor_parallel_on_the_card(cuda_device, tmp_path):
+    """A ``(1, 2)`` gloo world, both ranks on this card
+    (``tests/torch_tp_world.py``'s ``card`` case): the reduced phi4-mini's
+    sharded loss within ``LOSS_RTOL`` (5e-4) and its prefill and decode
+    logits within ``TOL`` (2e-2, tests/torch_models_ref.py) of the
+    unsharded run of the same parameters on the card, on both ranks."""
+    import json
+    import os
+    import sys
+    from repro_torch.scripts import local_world
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"mesh": [1, 2], "device": "cuda",
+                                "cases": ["card"]}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, "..", "src"), here]))
+    runs = local_world.spawn([sys.executable,
+                              os.path.join(here, "torch_tp_world.py"),
+                              str(spec), str(tmp_path)], 2, timeout=300,
+                             env=env, workdir=str(tmp_path))
+    for k, run in enumerate(runs):
+        assert run.returncode == 0, f"rank {k}:\n{run.stdout}{run.stderr}"
+        errors = json.loads((tmp_path / f"rank{k}.json").read_text())
+        assert not errors["errors"], errors
+        got = dict(np.load(tmp_path / f"card_{k}.npz"))
+        np.testing.assert_allclose(got["sharded.loss"], got["whole.loss"],
+                                   rtol=5e-4)
+        np.testing.assert_allclose(got["sharded.logits"],
+                                   got["whole.logits"], rtol=2e-2, atol=2e-2)

@@ -55,8 +55,6 @@ from repro_torch import configs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import Transformer, reference_paths
 from repro_torch.scripts import local_world
-from repro_torch.train.optimizer import OptimizerConfig
-from repro_torch.train.step import make_local_accum_train_step
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -479,14 +477,6 @@ def test_reshard_restore_gives_each_rank_the_reference_shard(worlds, world,
 
 # ---- what the step refuses ------------------------------------------------------
 
-def test_a_model_axis_raises_naming_the_tensor_parallel_slice():
-    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
-                           mesh=torch.empty(2, 2))
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        make_local_accum_train_step(configs.reduced_config(ARCH),
-                                    OptimizerConfig(), mesh)
-
-
 def test_a_cuda_mesh_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -527,7 +517,8 @@ def test_reference_zero1_moments_outgrow_the_gradient_shard_at_tp2():
     3, so at ``n_dp = 3, tp = 2`` a moment row (``ceil(P / 6) * 2``
     elements) can be one longer than the gradient shard (``ceil(P /
     3)``) and the step does not trace; at ``tp = 1`` it does.  The port
-    keeps the reference's moment layout and refuses a model axis > 1."""
+    keeps the reference's moment layout and raises ``ValueError`` there
+    (``tests/test_torch_tp_train.py``)."""
     out = run_devices_subprocess(_TP_PAD, num_devices=6, timeout=300)
     assert "TP 1 LOWERS" in out, out
     assert "TP 2 TypeError add got incompatible shapes for broadcasting" \
