@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --parent DIR   # also time DIR's kernels in turns
-    python3 chip_smoke.py --cards 4  # the sharded load and data-parallel
-                                     # training over NCCL, 4 cards
+    python3 chip_smoke.py --cards 4  # the sharded load and data-parallel,
+                                     # tensor-parallel and FSDP training
+                                     # over NCCL, 4 cards
 
 Needs one CUDA device of compute capability >= 9.0 and the CUDA toolkit
 (the kernels are built from ``src/repro_torch/csrc`` at first use).  It
@@ -145,10 +146,10 @@ Phases (any failure exits non-zero):
     launch in the text load inside the first step, timed by a wrapper);
     every loss finite, step 0's within 2 of ln V; the step ms (host clock
     around each step, which ends in ``float(loss)``) and its median after 2
-    warm-up steps, tokens/s, and the step's bound (``6 N T`` FLOPs plus
-    attention's over 989 TFLOP/s bf16, then the clip's and AdamW's 36 bytes
-    a parameter over 3.35 TB/s; also with the recomputed forward, ``8 N
-    T``).  Then, from a fresh init, 6 steps on one fixed walk batch at lr
+    warm-up steps, tokens/s, and the step's bound (the FLOPs of
+    ``launch.accounting.step_flops`` over 989 TFLOP/s bf16, then the
+    clip's and AdamW's 36 bytes a parameter over 3.35 TB/s; also with the
+    recomputed forward).  Then, from a fresh init, 6 steps on one fixed walk batch at lr
     1e-3 (recorded: it diverges at this width) and, from another, at 3e-5,
     which must lower the loss below 0.8 of its first value; one more step
     traced (launches, device ms, the busy share); peak memory.  Then each of the six kinds' reduced archs
@@ -214,6 +215,31 @@ Phases (any failure exits non-zero):
     within 1e-2);  ``--cards N`` then decodes phi4-mini-3.8b at full width
     and depth at tp=N over NCCL and trains it with the ``(1, N)`` f32 step
     and the ``(N/2, 2)`` ZeRO-1 step (2 steps each: ms, peak memory);
+3k. (run last, after 3j) FSDP execution, its numbers under ``fsdp`` in the
+    JSON.  (a) Worlds of ``--fsdp-rank`` ranks over gloo on this one card
+    (a test of the FSDP arithmetic, not a deployment), ``(2, 1)`` and ``(2,
+    2)``: each of the 10 reduced archs from ``init_params(cfg, SEED, tp)``
+    sharded by ``shard_model(..., fsdp=True)`` (every rank's pieces of the
+    rules' shapes; a bf16 state for ``BF16_STATE_ARCHS``), two steps of
+    ``make_train_step(..., mesh=mesh)`` at ``accum_steps=2`` on a 4 x 16
+    batch (an MoE's routing group spans the ranks) against the
+    single-card step of the same parameters in the same rank: the first
+    loss within 5e-4 and the second within 2e-3, gradient norms within
+    1e-2, the first step's moments (its gradients) within 5e-2 of each
+    leaf's largest magnitude, the moments f32 after every step; at ``(2,
+    1)`` also the bf16 model's prefill and 8 greedy decode steps with the
+    batch split over the data axis against the unsharded run, the tokens
+    equal wherever its top-2 margin exceeds ``MARGIN_TOL``.  (b)
+    mixtral-8x22b at full width, 1 of 56 layers, ``fsdp`` and the bf16
+    state by the reference's defaults, in a gloo world of two on this
+    card: each rank loads the scale-22 text (the loader's launches counted
+    from 0) for a batch of 8 x 128 walks, then 2 steps (lr 3e-5,
+    ``remat="full"``): losses finite and equal on both ranks, step ms, the
+    collectives' calls and bytes a step, state bytes a rank, peak memory;
+    then, in this process, the unsharded single-card step of the same
+    model on the same batch (step 0's loss within 5e-4);
+    ``--cards N`` trains it 4 of 56 layers deep at ``(N, 1)`` and ``(N/2,
+    2)`` over NCCL, one rank a card;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1570,6 +1596,8 @@ def sharded_across_cards(torch, cards: int) -> int:
     say(json.dumps({f"train_dp_nccl_d{cards}": report["train_dp"]}))
     report["tp"] = tp_across_cards(torch, cards, p22)
     say(json.dumps({f"tp_nccl_{cards}": report["tp"]}))
+    report["fsdp"] = fsdp_across_cards(torch, cards, p22)
+    say(json.dumps({f"fsdp_nccl_{cards}": report["fsdp"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -2333,16 +2361,18 @@ CARD_LOSS_RTOL, CARD_GNORM_RTOL, CARD_PARAM_ATOL = 2e-3, 1e-2, 2.5e-3
 
 
 def train_bound(cfg, tokens: int, params: int) -> dict:
-    """The step's least time on the card: the matrix FLOPs of the forward
-    and backward passes (``6 N T`` plus attention's scores and values)
-    over the dense bf16 peak, then the clip's and AdamW's bytes over the
-    HBM rate; the two run one after the other.  ``8 N T`` counts the
-    forward again, as ``remat="full"`` recomputes it."""
-    attn = 4 * tokens * TRAIN_SEQ * cfg.num_heads * cfg.head_dim \
-        * cfg.num_layers                    # q k^T and p v, one forward
-    fwd = 2 * params * tokens + attn
+    """The step's least time on the card: the FLOPs of the forward and
+    backward passes, from ``launch.accounting.step_flops`` (the
+    reference's analytic accounting: the layers' matrices and the tied
+    head, causal attention's scores and values halved; the forward again
+    where ``remat="full"`` recomputes it), over the dense bf16 peak, then
+    the clip's and AdamW's bytes over the HBM rate; the two run one after
+    the other."""
+    from repro_torch.launch.accounting import step_flops
+    kw = dict(seq=TRAIN_SEQ, batch=tokens // TRAIN_SEQ, kind="train")
     opt_ms = bound_ms(OPT_BYTES_PER_PARAM * params)
-    row = {"flops": 3 * fwd, "flops_with_recompute": 4 * fwd,
+    row = {"flops": step_flops(cfg, 1, remat=None, **kw),
+           "flops_with_recompute": step_flops(cfg, 1, remat="full", **kw),
            "opt_bytes": OPT_BYTES_PER_PARAM * params, "opt_ms": opt_ms}
     row["flops_ms"] = row["flops"] / BF16_FLOPS_PER_S * 1e3
     row["flops_with_recompute_ms"] = \
@@ -3566,9 +3596,10 @@ def tp_rank(cfg_path) -> int:
     return 0
 
 
-def tp_world(name, mesh, backend, modes, **extra):
-    """A world of ``mesh[0] * mesh[1]`` ranks of this script
-    (:func:`tp_rank`); returns ``(wall seconds, every rank's rows)``."""
+def tp_world(name, mesh, backend, modes, flag="--tp-rank", **extra):
+    """A world of ``mesh[0] * mesh[1]`` ranks of this script (``flag``
+    picks the rank's function, :func:`tp_rank` by default); returns
+    ``(wall seconds, every rank's rows)``."""
     from repro_torch.scripts import local_world
     out = os.path.join(OUT, f"tp_{name}")
     shutil.rmtree(out, ignore_errors=True)
@@ -3579,7 +3610,7 @@ def tp_world(name, mesh, backend, modes, **extra):
                    "out": out, **extra}, f)
     t0 = time.perf_counter()
     runs = local_world.spawn([sys.executable, os.path.abspath(__file__),
-                              "--tp-rank", cfg], mesh[0] * mesh[1],
+                              flag, cfg], mesh[0] * mesh[1],
                              timeout=900, workdir=out)
     wall = time.perf_counter() - t0
     rows = []
@@ -3734,6 +3765,401 @@ def tp_across_cards(torch, cards, path22):
                             if kk not in ("prompts", "margins")}
                            if k == "serve" else v) for k, v in r.items()}
                       for r in rows]}
+
+
+# ---- phase 3k: FSDP execution -------------------------------------------------
+
+FSDP_ARCH = "mixtral-8x22b"
+FSDP_LAYERS = 1           # full width, 1 of 56 layers (module docstring)
+FSDP_CARDS_LAYERS = 4     # --cards: 4 of 56
+FSDP_STEPS = 2            # the second runs on the f32 moments of the first
+FSDP_OC = dict(lr=3e-5, warmup_steps=0, decay_steps=100)
+FSDP_REDUCED_OC = dict(lr=1e-4, warmup_steps=0, decay_steps=50)
+FSDP_REDUCED_BATCH, FSDP_REDUCED_SEQ = 4, 16   # MoE groups span the ranks
+FSDP_REDUCED_ACCUM = 2
+
+
+def local_shape(model, name, placements, sizes):
+    """A parameter's piece on a rank by its placements: the whole shape
+    with each dim a mesh axis shards divided by that axis's size."""
+    from repro_torch.distributed.sharding import whole_shape
+    shape = list(whole_shape(model, name))
+    for size, pl in zip(sizes, placements):
+        if pl.is_shard():
+            shape[pl.dim] //= size
+    return shape
+
+
+def fsdp_piece_errors(model, cfg, mesh):
+    """The parameters whose piece on this rank has another shape than the
+    rules give at ``fsdp=True``."""
+    from repro_torch.distributed.sharding import param_placements
+    pl = param_placements(model, cfg, mesh, fsdp=True)
+    sizes = list(mesh.mesh.shape)
+    return [name for name, p in model.named_parameters()
+            if list(p.shape) != local_shape(model, name, pl[name], sizes)]
+
+
+def fsdp_moment_err(torch, model, mu, single_mu):
+    """The largest difference of the first step's moments (``(1 - b1)``
+    times the gradient), whole, from the single-card run's, over each
+    leaf's largest magnitude."""
+    from repro_torch.checkpoint.io import _whole
+    from repro_torch.distributed import tensor_parallel as tpar
+    err = 0.0
+    for name, m in mu.items():
+        w = _whole(m) if hasattr(m, "to_local") else \
+            tpar.whole_of(model, name, m)
+        ref = single_mu[name].float()
+        err = max(err, float((w.float() - ref).abs().max()
+                             / ref.abs().max().clamp_min(1e-30)))
+    return err
+
+
+def fsdp_reduced_checks(torch, mesh, rank, serve):
+    """Phase 3k (a), one rank of a gloo world on one card: every reduced
+    arch from ``init_params(cfg, SEED, tp)`` at ``fsdp=True`` (a bf16
+    state for ``BF16_STATE_ARCHS``), ``FSDP_STEPS`` steps of the mesh step
+    against the single-card step of the same parameters; with ``serve``
+    also the prefill and greedy decode against the unsharded run."""
+    import copy
+    from repro_torch.configs import BF16_STATE_ARCHS, reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = mesh_device(mesh)
+    tp = mesh.mesh.shape[1]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    oc = OptimizerConfig(**FSDP_REDUCED_OC)
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = reduced_config(arch)
+        dtype = torch.bfloat16 if arch in BF16_STATE_ARCHS else None
+        base = init_params(cfg, SEED, tp=tp, device=dev, dtype=torch.float32)
+        batch = synthetic_batch(cfg, FSDP_REDUCED_BATCH, FSDP_REDUCED_SEQ, 0,
+                                device=dev)
+        one = init_state(copy.deepcopy(base), dtype=dtype)
+        single = make_train_step(cfg, oc, accum_steps=FSDP_REDUCED_ACCUM)
+        model = tpar.shard_model(base, cfg, mesh, fsdp=True)
+        bad = fsdp_piece_errors(model, cfg, mesh)
+        require(not bad, f"fsdp {arch} rank {rank}: pieces of other shapes "
+                f"than the rules' ({bad[:4]})")
+        state = init_state(model, dtype=dtype, mesh=mesh)
+        step = make_train_step(cfg, oc, accum_steps=FSDP_REDUCED_ACCUM,
+                               mesh=mesh)
+        row = {"losses": [], "single_losses": [], "grad_norms": [],
+               "single_grad_norms": [], "moment_dtypes": []}
+        for i in range(FSDP_STEPS):
+            state, m = step(state, batch)
+            one, m1 = single(one, batch)
+            if i == 0:
+                row["grad_err"] = fsdp_moment_err(torch, model, state.mu,
+                                                  one.mu)
+            row["losses"].append(float(m["loss"]))
+            row["single_losses"].append(float(m1["loss"]))
+            row["grad_norms"].append(float(m["grad_norm"]))
+            row["single_grad_norms"].append(float(m1["grad_norm"]))
+            row["moment_dtypes"].append(sorted({
+                str((v.to_local() if hasattr(v, "to_local") else v).dtype)
+                for v in state.mu.values()}))
+        row["param_bytes_rank"] = sum(p.numel() * p.element_size()
+                                      for p in model.parameters())
+        del state, one, model, base
+        if serve:
+            row["serve"] = fsdp_reduced_serve(torch, cfg, mesh, batch)
+        out[arch] = row
+    return out
+
+
+def fsdp_reduced_serve(torch, cfg, mesh, batch):
+    """Prefill and ``TP_REDUCED_STEPS`` greedy steps of the bf16 serving
+    model at ``fsdp=True`` (the batch split over the data axis) and
+    unsharded: both token streams and the unsharded run's top-2 margins."""
+    import copy
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    dev = mesh_device(mesh)
+    tp = mesh.mesh.shape[1]
+    base = init_params(cfg, SEED, tp=tp, device=dev)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    runs = {}
+    for tag, model, m in (("whole", copy.deepcopy(base), None),
+                          ("fsdp", tpar.shard_model(base, cfg, mesh,
+                                                    fsdp=True), mesh)):
+        prefill = make_prefill_step(cfg, TP_REDUCED_MAX, tp=tp, mesh=m)
+        decode = make_decode_step(cfg, TP_REDUCED_MAX, tp=tp, mesh=m)
+        lg, caches = prefill(model, prompt)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        toks, margins = [tok.cpu().tolist()], []
+        for i in range(TP_REDUCED_STEPS):
+            top = torch.topk(lg.float(), 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu().tolist())
+            pos = torch.full((tok.shape[0],), FSDP_REDUCED_SEQ + i,
+                             dtype=torch.int32, device=dev)
+            tok, lg, caches = decode(model, caches, {"token": tok,
+                                                     "pos": pos})
+            toks.append(tok.cpu().tolist())
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu().tolist())
+        runs[tag] = {"tokens": toks, "margins": margins,
+                     "cache_rows": next(iter(caches[0].values())).shape[0]}
+    return {"tokens": runs["fsdp"]["tokens"],
+            "whole_tokens": runs["whole"]["tokens"],
+            "margins": runs["whole"]["margins"],
+            "cache_rows": runs["fsdp"]["cache_rows"],
+            "equal": runs["fsdp"]["tokens"] == runs["whole"]["tokens"]}
+
+
+def fsdp_full(torch, kernels, mesh, rank, cfg_row, layers):
+    """Phase 3k (b) and ``--cards``' runs, one rank: mixtral-8x22b at full
+    width, ``layers`` deep, sharded by the reference's defaults
+    (``FSDP_ARCHS``, ``BF16_STATE_ARCHS``), ``FSDP_STEPS`` steps of the
+    mesh step on a walk batch of the scale-22 text (its load counted):
+    losses, gradient norms, step ms, the data axis's all-gathers and
+    reduce-scatters a step, state bytes a rank, peak memory."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import BF16_STATE_ARCHS, FSDP_ARCHS, get_config
+    from repro_torch.data.pipeline import graph_walk_source
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = mesh_device(mesh)
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), num_layers=layers)
+    fsdp = cfg.name in FSDP_ARCHS
+    dtype = torch.bfloat16 if cfg.name in BF16_STATE_ARCHS else None
+    source = graph_walk_source(cfg_row["path"], cfg, TRAIN_BATCH, TRAIN_SEQ,
+                               device=dev)
+    batch, load_s, lc = counted(torch, kernels, lambda: source(0))
+    need(lc, LOAD_KERNELS, f"fsdp rank {rank}: the text load")
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    # the matrices drawn in f32 and rounded to bf16, as the reference's
+    # bf16 state casts its f32 init
+    model = init_params(cfg, SEED, device=dev)
+    if cfg_row["backend"] == "nccl":
+        for p in model.parameters():
+            dist.broadcast(p.detach(), src=0)
+    whole_bytes = sum(p.numel() * 2 for p in model.parameters())
+    tpar.shard_model(model, cfg, mesh, fsdp=fsdp)
+    free_card(torch)
+    state = init_state(model, dtype=dtype, mesh=mesh)
+    step = make_train_step(cfg, OptimizerConfig(**FSDP_OC),
+                           remat_policy="full", mesh=mesh)
+    local = (lambda t: t.to_local() if hasattr(t, "to_local") else t)
+    losses, norms, ms, colls, dtypes = [], [], [], [], []
+    for i in range(FSDP_STEPS):
+        coll = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes(coll):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+        colls.append(coll)
+        dtypes.append(sorted({str(local(v).dtype)
+                              for v in state.mu.values()}))
+    params = sum(p.numel() for p in state.params.parameters())
+    row = {"layers": layers, "mesh": list(mesh.mesh.shape), "fsdp": fsdp,
+           "param_dtype": str(next(state.params.parameters()).dtype),
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "collectives": colls, "moment_dtypes": dtypes,
+           "text_load_s": load_s, "launches": lc,
+           "whole_param_bytes": whole_bytes,
+           "param_bytes_rank": sum(p.numel() * p.element_size()
+                                   for p in state.params.parameters()),
+           "grad_bytes_rank": sum(p.numel() * p.element_size()
+                                  for p in state.params.parameters()),
+           "moment_bytes_rank": sum(local(t).numel() * local(t).element_size()
+                                    for t in list(state.mu.values())
+                                    + list(state.nu.values())),
+           "params_rank": params,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    row["state_bytes_rank"] = row["param_bytes_rank"] \
+        + row["grad_bytes_rank"] + row["moment_bytes_rank"]
+    require(all(np.isfinite(losses)), f"fsdp {row['mesh']} rank {rank}: "
+            f"finite losses ({losses})")
+    del state, model, step, batch, source
+    free_card(torch)
+    return row
+
+
+def fsdp_unsharded(torch, text_path, layers):
+    """Phase 3k (b)'s comparison, in this process once the world is gone:
+    the same model, state and walk batch through the single-card
+    ``make_train_step``: losses, gradient norms, step ms, peak memory."""
+    import dataclasses
+    from repro_torch.configs import BF16_STATE_ARCHS, get_config
+    from repro_torch.data.pipeline import graph_walk_source
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), num_layers=layers)
+    dtype = torch.bfloat16 if cfg.name in BF16_STATE_ARCHS else None
+    batch = graph_walk_source(text_path, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                              device=dev)(0)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(init_params(cfg, SEED, device=dev), dtype=dtype)
+    step = make_train_step(cfg, OptimizerConfig(**FSDP_OC),
+                           remat_policy="full")
+    losses, norms, ms = [], [], []
+    for _ in range(FSDP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    row = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del state, step, batch
+    free_card(torch)
+    return row
+
+
+def fsdp_rank(cfg_path) -> int:
+    """One rank of a phase-3k world (``--fsdp-rank``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.scripts import local_world
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(int(os.environ["RANK"])
+                          % torch.cuda.device_count())
+    mesh, rank, world = local_world.join(cfg["backend"], "cuda",
+                                         cfg["mesh"], ("data", "model"))
+    try:
+        rows = {}
+        for mode in cfg["modes"]:
+            if mode == "reduced":
+                rows[mode] = fsdp_reduced_checks(torch, mesh, rank,
+                                                 cfg.get("serve", False))
+            else:
+                rows[mode] = fsdp_full(torch, kernels, mesh, rank, cfg,
+                                       cfg["layers"])
+        if cfg.get("then_mesh"):       # --cards: a second mesh in the world
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh2 = init_device_mesh("cuda", tuple(cfg["then_mesh"]),
+                                     mesh_dim_names=("data", "model"))
+            rows["then"] = fsdp_full(torch, kernels, mesh2, rank, cfg,
+                                     cfg["layers"])
+    finally:
+        local_world.leave()
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def check_fsdp_reduced(rows, world):
+    """Phase 3k (a)'s requirements over a world's rows: each step's loss
+    and gradient norm, the first step's gradients (its moments), the
+    moments f32 after the first step, and the tokens where the unsharded
+    run's top-2 margin exceeds ``MARGIN_TOL``."""
+    for k, r in enumerate(rows):
+        for arch, a in r["reduced"].items():
+            what = f"fsdp {world} {arch} rank {k}"
+            require(abs(a["losses"][0] - a["single_losses"][0])
+                    <= TP_LOSS_RTOL * abs(a["single_losses"][0])
+                    and abs(a["losses"][1] - a["single_losses"][1])
+                    <= CARD_LOSS_RTOL * abs(a["single_losses"][1])
+                    and all(abs(x - y) <= TP_GNORM_RTOL * y for x, y in
+                            zip(a["grad_norms"], a["single_grad_norms"]))
+                    and a["grad_err"] <= TP_GRAD_TOL,
+                    f"{what}: against the single-card step ({a})")
+            require(all(d == ["torch.float32"]
+                        for d in a["moment_dtypes"]),
+                    f"{what}: the moments f32 after each step "
+                    f"({a['moment_dtypes']})")
+            if "serve" in a:
+                s = a["serve"]
+                for row in range(len(s["whole_tokens"][0])):
+                    for x, y, mg in zip(s["tokens"], s["whole_tokens"],
+                                        s["margins"]):
+                        if mg[row] <= MARGIN_TOL:
+                            break
+                        require(x[row] == y[row], f"{what}: token {x[row]} "
+                                f"!= {y[row]} at a margin of {mg[row]}")
+
+
+def fsdp_world(name, mesh, backend, modes, **extra):
+    """A world of ``mesh[0] * mesh[1]`` ranks of this script
+    (:func:`fsdp_rank`)."""
+    return tp_world(name, mesh, backend, modes, flag="--fsdp-rank", **extra)
+
+
+def phase_fsdp(torch, kernels, text_path, report):
+    """FSDP execution on the card (phase 3k): (a) the reduced archs at
+    ``(2, 1)`` and ``(2, 2)`` in gloo worlds on this card against the
+    single-card step, the reduced serving at ``(2, 1)``; (b) mixtral-8x22b
+    at full width, ``FSDP_LAYERS`` deep, in a gloo world of two.  Returns
+    the loader's launch counts."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    row = {}
+    report["fsdp"] = row
+    reduced = {}
+    for name, mesh in (("(2, 1)", (2, 1)), ("(2, 2)", (2, 2))):
+        wall, rows = fsdp_world(f"reduced{mesh[1]}", mesh, "gloo",
+                                ["reduced"], serve=mesh == (2, 1))
+        check_fsdp_reduced(rows, name)
+        reduced[name] = {"world_s": wall, "ranks": rows}
+    row["reduced"] = dict(reduced, what="a test of the FSDP arithmetic on "
+                          "one card over gloo, not a deployment")
+    say(json.dumps({"fsdp_reduced": {
+        k: {"world_s": v["world_s"], "rank0": {
+            a: {kk: vv for kk, vv in r.items() if kk != "serve"}
+            for a, r in v["ranks"][0]["reduced"].items()}}
+        for k, v in reduced.items()}}))
+
+    wall, rows = fsdp_world("full", (2, 1), "gloo", ["full"],
+                            path=text_path, layers=FSDP_LAYERS)
+    for r in rows[1:]:
+        require(r["full"]["losses"] == rows[0]["full"]["losses"],
+                "fsdp full: every rank's losses equal")
+    whole = fsdp_unsharded(torch, text_path, FSDP_LAYERS)
+    got = rows[0]["full"]["losses"]
+    require(abs(got[0] - whole["losses"][0])
+            <= TP_LOSS_RTOL * abs(whole["losses"][0]),
+            f"fsdp full: step 0's loss {got[0]} against the unsharded "
+            f"step's {whole['losses'][0]}")
+    row["full"] = {"what": "fsdp over gloo, both ranks on this card: its "
+                   "step times show gloo's host copies, not FSDP",
+                   "world_s": wall, "ranks": [r["full"] for r in rows],
+                   "unsharded": whole}
+    say(json.dumps({"fsdp_full": row["full"]}))
+    row["phase_s"] = time.perf_counter() - t_phase
+    say("phase 3k: FSDP execution (10 reduced archs at (2, 1) and (2, 2), "
+        "mixtral-8x22b at full width with its bf16 state) checks out on "
+        "the card")
+    return {f"fsdp rank {k}: the text load for its walks":
+            r["full"]["launches"] for k, r in enumerate(rows)}
+
+
+def fsdp_across_cards(torch, cards, path22):
+    """``--cards N``'s FSDP world: N ranks over NCCL, one card each:
+    mixtral-8x22b at full width, ``FSDP_CARDS_LAYERS`` deep, at ``(N,
+    1)``, then at ``(N/2, 2)``."""
+    wall, rows = fsdp_world("cards", (cards, 1), "nccl", ["full"],
+                            path=path22, layers=FSDP_CARDS_LAYERS,
+                            then_mesh=[cards // 2, 2])
+    for mode in ("full", "then"):
+        require(all(r[mode]["losses"] == rows[0][mode]["losses"]
+                    for r in rows), f"--cards {cards} fsdp {mode}: the "
+                f"losses equal on every rank")
+    return {"world_s": wall, "ranks": rows}
 
 
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
@@ -4187,10 +4613,12 @@ def main() -> int:
                     help="only the sharded load, over NCCL: worlds of 1 "
                          "and N ranks, one card each, then data-parallel "
                          "training across the N cards, then tensor-parallel "
-                         "decode and training (needs N cards)")
+                         "decode and training, then FSDP training (needs N "
+                         "cards)")
     ap.add_argument("--shard-rank", metavar="CFG", help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank", metavar="CFG", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", metavar="CFG", help=argparse.SUPPRESS)
+    ap.add_argument("--fsdp-rank", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4206,6 +4634,8 @@ def main() -> int:
         return dp_rank(args.dp_rank)
     if args.tp_rank:                     # a rank of a phase-3j world
         return tp_rank(args.tp_rank)
+    if args.fsdp_rank:                   # a rank of a phase-3k world
+        return fsdp_rank(args.fsdp_rank)
     if args.cards:
         return sharded_across_cards(torch, args.cards)
     import repro_torch
@@ -4293,6 +4723,7 @@ def main() -> int:
     by_path.update(phase_train_lm(torch, kernels, p22, report))
     by_path.update(phase_train_dp(torch, kernels, p22, report))
     by_path.update(phase_tp(torch, kernels, p22, report))
+    by_path.update(phase_fsdp(torch, kernels, p22, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

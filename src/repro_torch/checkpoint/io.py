@@ -28,8 +28,17 @@ A model that ``distributed.tensor_parallel.shard_model`` has sharded
 saves the reference's logical leaves too: each piece of its parameters,
 moments and error buffer is gathered whole over the model group (every
 rank takes part), and a restore into such a model copies each rank its
-piece (``tensor_parallel.take``), so a checkpoint crosses between ``tp``
-widths and packages.
+piece (``tensor_parallel.piece_of``), so a checkpoint crosses between
+``tp`` widths and packages; with ``fsdp`` the same holds over the data
+axes.
+
+A bf16 leaf (the state of the reference's ``BF16_STATE_ARCHS``) is
+written as the reference writes it: the manifest says ``bfloat16`` and
+the ``.npy`` holds its raw 2-byte words under the ``<V2`` descriptor
+(numpy's own view of ``ml_dtypes.bfloat16``); a ``V2`` file reads back
+as bf16.  A restored moment or error buffer takes the checkpoint's
+dtype, so a bf16 state whose moments have turned f32 restores as it was
+saved; a parameter is copied into the template's dtype.
 
 Leaves are copied to the host before a save returns or its writer thread
 starts, so an async save never reads a tensor that the next step
@@ -104,11 +113,18 @@ def _layout(model, name: str):
     return mg, model.layouts[name]
 
 
+def _sharded(model, name: str) -> bool:
+    """Whether parameter ``name`` of ``model`` is a piece of its leaf."""
+    return _layout(model, name)[1] is not None or \
+        name in getattr(model, "data_dims", {})
+
+
 def _whole_piece(model, name: str, t: torch.Tensor) -> torch.Tensor:
     """A sharded model's piece ``t`` of leaf ``name`` gathered whole (a
-    collective); ``t`` itself elsewhere."""
-    mg, layout = _layout(model, name)
-    return t if layout is None else tpar.whole(t.detach(), layout, mg)
+    collective); ``t`` itself elsewhere and for a ``DTensor``."""
+    if _is_dtensor(t) or not _sharded(model, name):
+        return t
+    return tpar.whole_of(model, name, t.detach())
 
 
 def _is_dtensor(t) -> bool:
@@ -131,13 +147,46 @@ def _whole(t) -> torch.Tensor:
     return local
 
 
+_BF16_WORDS = np.dtype("V2")
+
+
 def _host(t: torch.Tensor, keep: bool) -> Optional[np.ndarray]:
     """A host copy of ``t`` (a ``DTensor`` gathered whole: every rank
-    takes part), or None where ``keep`` is false."""
+    takes part; bf16 as ``V2`` words), or None where ``keep`` is false."""
     t = t.detach()
     if _is_dtensor(t):
         t = _whole(t)
-    return t.to("cpu", copy=True).numpy() if keep else None
+    if not keep:
+        return None
+    if t.dtype == torch.bfloat16:
+        return t.to("cpu", copy=True).view(torch.int16).numpy() \
+            .view(_BF16_WORDS)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
+
+
+def _save_npy(path: str, arr: np.ndarray) -> None:
+    """``np.save``, but a bf16 array (``V2`` words) under the ``<V2``
+    descriptor the reference's ``np.save`` of a bf16 array writes."""
+    if arr.dtype != _BF16_WORDS:
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(arr.shape)})
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor of ``arr``'s values (a ``V2`` array as bf16)."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def save(state: TrainState, directory: str, step: int, *,
@@ -166,11 +215,11 @@ def save(state: TrainState, directory: str, step: int, *,
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": step, "treedef": _TREEDEF,
                     "leaves": {k: {"shape": list(v.shape),
-                                   "dtype": str(v.dtype)}
+                                   "dtype": _dtype_name(v)}
                                for k, v in flat.items()},
                     "shards": 1}
         for k, v in flat.items():
-            np.save(os.path.join(tmp, k + ".npy"), v)
+            _save_npy(os.path.join(tmp, k + ".npy"), v)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(final):
@@ -201,10 +250,31 @@ def _put(dst: torch.Tensor, arr: np.ndarray, what: str) -> None:
         raise ValueError(f"checkpoint leaf {what} has shape {arr.shape}, "
                          f"the state wants {tuple(dst.shape)}")
     if _is_dtensor(dst):
-        dst.to_local().copy_(torch.from_numpy(np.array(
-            _local_slice(arr, dst.device_mesh, dst.placements))))
+        dst.to_local().copy_(_tensor(
+            _local_slice(arr, dst.device_mesh, dst.placements)))
         return
-    dst.copy_(torch.from_numpy(np.array(arr)))
+    dst.copy_(_tensor(arr))
+
+
+def _file_dtype(arr: np.ndarray) -> torch.dtype:
+    if arr.dtype.kind == "V":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
+
+
+def _as_file_dtype(dst, arr: np.ndarray):
+    """A moment's template ``dst`` of the checkpoint leaf's dtype: itself
+    where they agree, else a new zero tensor (or ``DTensor``) like it."""
+    dtype = _file_dtype(arr)
+    if dst.dtype == dtype:
+        return dst
+    if _is_dtensor(dst):
+        from torch.distributed.tensor import DTensor
+        local = torch.zeros_like(dst.to_local(), dtype=dtype)
+        return DTensor.from_local(local, dst.device_mesh, dst.placements,
+                                  run_check=False, shape=dst.shape,
+                                  stride=dst.stride())
+    return torch.zeros_like(dst, dtype=dtype)
 
 
 def _local_slice(arr: np.ndarray, mesh, placements) -> np.ndarray:
@@ -222,7 +292,7 @@ def _placed(arr: np.ndarray, mesh, placements, dtype) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     from ..distributed.collectives import mesh_device
-    local = torch.from_numpy(np.array(_local_slice(arr, mesh, placements)))
+    local = _tensor(_local_slice(arr, mesh, placements))
     local = local.to(device=mesh_device(mesh), dtype=dtype)
     stride = tuple(int(np.prod(arr.shape[i + 1:]))
                    for i in range(len(arr.shape)))
@@ -276,19 +346,27 @@ def restore(template: TrainState, directory: str,
             what = key
         tree = getattr(template, field)
         dst = tree.get_parameter(name) if field == "params" else tree[name]
+        if field != "params":
+            dst = tree[name] = _as_file_dtype(dst, arr)
         pl = placements.get(field, {}).get(name)
         if pl is None:
-            mg, layout = _layout(template.params, name)
-            if layout is not None:      # this rank's piece of the leaf
-                arr = tpar.take(torch.from_numpy(np.array(arr)), layout,
-                                mg.rank, mg.size).numpy()
-            _put(dst, arr, what)
+            if _sharded(template.params, name) and not _is_dtensor(dst):
+                # this rank's piece of the leaf
+                piece = tpar.piece_of(template.params, name, _tensor(arr))
+                if tuple(piece.shape) != tuple(dst.shape):
+                    raise ValueError(f"checkpoint leaf {what} gives a piece "
+                                     f"of shape {tuple(piece.shape)}, the "
+                                     f"state wants {tuple(dst.shape)}")
+                dst.copy_(piece)
+            else:
+                _put(dst, arr, what)
             continue
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"checkpoint leaf {what} has shape "
                              f"{arr.shape}, the state wants "
                              f"{tuple(dst.shape)}")
-        new = _placed(arr, mesh, pl, dst.dtype)
+        new = _placed(arr, mesh, pl, dst.dtype if field == "params"
+                      else _file_dtype(arr))
         if field == "params":
             owner, _, attr = name.rpartition(".")
             mod = tree.get_submodule(owner)

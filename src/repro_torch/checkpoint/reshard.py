@@ -27,8 +27,12 @@ def reshard_restore(template, directory: str, cfg, mesh, *, fsdp: bool,
     slice.  ``template`` (``train.state.abstract_state`` will do, at the
     checkpoint's ``tp``) gives the structure; its model comes back with
     ``DTensor`` parameters, which
-    ``distributed.tensor_parallel.shard_model`` turns into a model that
-    runs on the mesh's model axis.  Returns ``(state, step)``."""
+    ``distributed.tensor_parallel.shard_model`` (with the same ``fsdp``)
+    turns into a model that runs on the mesh, each rank keeping its local
+    shards; the ``DTensor`` moments are the state of
+    ``train.step.make_train_step(..., mesh=mesh)``.  A moment takes the
+    checkpoint's dtype (f32 after a bf16 state's first step).  Returns
+    ``(state, step)``."""
     model = template.params
     pp = shd.param_placements(model, cfg, mesh, fsdp=fsdp)
     mp = shd.moment_placements(model, cfg, mesh, fsdp=fsdp)

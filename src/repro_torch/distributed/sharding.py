@@ -241,12 +241,16 @@ def _stacked(model):
 def whole_shape(model, name: str) -> Tuple[int, ...]:
     """A parameter's whole shape: its own, but on a model that
     ``tensor_parallel.shard_model`` has sharded, where the split dim is
-    ``tp`` times the rank's."""
+    ``tp`` times the rank's (and the dim the data axes split, with
+    ``fsdp``, their size times)."""
     shape = list(model.get_parameter(name).shape)
     mg = getattr(model, "mg", None)
     layout = getattr(model, "layouts", {}).get(name)
     if mg is not None and layout is not None:
         shape[layout[1]] *= mg.size
+    d = getattr(model, "data_dims", {}).get(name)
+    if d is not None:
+        shape[d] *= model.dg.size
     return tuple(shape)
 
 

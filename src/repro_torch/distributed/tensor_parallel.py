@@ -37,6 +37,12 @@ the conv and the state are split over ``inner``.  A rank therefore
 stores its slice of each half; :func:`take` and :func:`whole` map it to
 and from the reference's layout bitwise, and the checkpoints go through
 them.
+
+With ``fsdp=True`` :func:`shard_model` also splits each leaf the rules
+shard over the data axes (``distributed/fsdp.py``): a rank keeps the
+data group's piece of its model piece, and the layers read it whole
+through ``fsdp.use``.  :func:`piece_of` and :func:`whole_of` map a leaf
+to and from its piece on both axes.
 """
 from __future__ import annotations
 
@@ -48,9 +54,6 @@ import torch.distributed as dist
 
 BF16 = torch.bfloat16
 F32 = torch.float32
-FSDP_LATER = ("FSDP execution (weights sharded over the data axes) is not "
-              "ported: the local-accumulation step keeps parameters "
-              "replicated over them")
 
 Layout = Optional[Tuple[str, int]]
 
@@ -62,6 +65,9 @@ class ModelGroup:
     group: object
     size: int
     rank: int
+
+    def __deepcopy__(self, memo):
+        return self         # a handle on the world's group: copies share it
 
 
 def model_group(mesh) -> Optional[ModelGroup]:
@@ -226,16 +232,15 @@ _SPLIT_WHEN_WHOLE = ("conv_b", "dt_bias", "D", "lam")
 
 def model_layouts(model, cfg, mesh, *, fsdp: bool = False) -> Dict[str, Layout]:
     """Each parameter's layout on ``mesh``'s model axis, from
-    ``sharding.param_placements``."""
+    ``sharding.param_placements`` (``fsdp`` moves no split over
+    ``"model"``; ``fsdp.data_dims`` gives the data axes' split)."""
     from .sharding import param_placements
-    if fsdp:
-        raise NotImplementedError(FSDP_LATER)
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names:
         return {n: None for n, _ in model.named_parameters()}
     at = names.index("model")
     out = {}
-    for name, pl in param_placements(model, cfg, mesh, fsdp=False).items():
+    for name, pl in param_placements(model, cfg, mesh, fsdp=fsdp).items():
         p = pl[at]
         if not p.is_shard():
             out[name] = None
@@ -286,42 +291,83 @@ def shard_model(model, cfg, mesh, *, fsdp: bool = False):
     """Keep this rank's shard of every parameter of ``model`` (whole, or
     a ``DTensor`` as ``checkpoint.reshard.reshard_restore`` gives it: its
     ``to_local()`` where that is the shard) by its placement on
-    ``mesh``'s ``"model"`` axis, and bind the model group to the model and
-    its layers.  In place; returns the model.  A leaf the
-    rules keep whole stays whole on every rank."""
+    ``mesh``'s ``"model"`` axis and, with ``fsdp``, on its data axes, and
+    bind the model group (and the data group) to the model and its
+    layers.  In place; returns the model.  A leaf the rules keep whole
+    stays whole on every rank."""
     mg = model_group(mesh)
     lay = model_layouts(model, cfg, mesh, fsdp=fsdp)
+    dg, dd = None, {}
+    if fsdp:
+        from . import fsdp as fs
+        dg = fs.data_group(mesh)
+        if dg is not None:
+            dd = {n: d for n, d in fs.data_dims(model, cfg, mesh).items()
+                  if d is not None}
     for name, p in list(model.named_parameters()):
-        t = _piece(p.detach(), lay[name], mg, mesh)
+        t = _piece(p.detach(), lay[name], mg, mesh, dd.get(name), dg)
         _replace(model, name, t.contiguous().clone(), p.requires_grad)
-    _bind(model, mg, lay if mg is not None else {})
+    _bind(model, mg, lay if mg is not None else {}, dg, dd)
     return model
 
 
 def _piece(t: torch.Tensor, layout: Layout, mg: Optional[ModelGroup],
-           mesh) -> torch.Tensor:
-    """This rank's piece under ``layout`` of a whole tensor or of a
-    ``DTensor``: its local shard where that is the piece already
-    (``Shard`` on the model axis, replicated elsewhere), else gathered
-    whole and cut."""
+           mesh, ddim: Optional[int] = None,
+           dg: Optional[ModelGroup] = None) -> torch.Tensor:
+    """This rank's piece under ``layout`` (and data dim ``ddim``) of a
+    whole tensor or of a ``DTensor``: its local shard where that is the
+    piece already (``Shard`` on the model axis and on the data axes,
+    replicated elsewhere), else gathered whole and cut."""
     if hasattr(t, "to_local"):
         from torch.distributed.tensor import Replicate, Shard
+
+        from .sharding import dp_axes, mesh_axes
+        data = dp_axes(mesh_axes(mesh))
         want = [Shard(layout[1]) if (a == "model" and layout is not None
                                      and layout[0] == "shard")
+                else Shard(ddim) if (a in data and ddim is not None)
                 else Replicate() for a in mesh.mesh_dim_names]
         if list(t.placements) == want and t.device_mesh == mesh:
             return t.to_local()
         t = t.full_tensor()
-    return t if mg is None else take(t, layout, mg.rank, mg.size)
+    return _cut(t, layout, mg, ddim, dg)
+
+
+def _cut(t, layout, mg, ddim, dg):
+    if mg is not None:
+        t = take(t, layout, mg.rank, mg.size)
+    if ddim is not None and dg is not None:
+        t = t.chunk(dg.size, dim=ddim)[dg.rank]
+    return t
+
+
+def piece_of(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of parameter ``name``'s whole value ``t`` on a
+    sharded model (``t`` itself on another)."""
+    return _cut(t, getattr(model, "layouts", {}).get(name),
+                getattr(model, "mg", None),
+                getattr(model, "data_dims", {}).get(name),
+                getattr(model, "dg", None))
+
+
+def whole_of(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The whole value of parameter ``name`` from every rank's piece ``t``
+    (its gradient, a moment of its shape or itself; collectives over the
+    data and model groups where they split it)."""
+    d = getattr(model, "data_dims", {}).get(name)
+    if d is not None:
+        from .fsdp import all_gather_dim
+        t = all_gather_dim(t, d, model.dg)
+    return whole(t, getattr(model, "layouts", {}).get(name),
+                 getattr(model, "mg", None))
 
 
 @torch.no_grad()
 def gather_model(model):
     """The inverse of :func:`shard_model`: every parameter whole on every
-    rank (a collective), the model group unbound.  In place."""
-    mg, lay = getattr(model, "mg", None), getattr(model, "layouts", {})
+    rank (a collective), the groups unbound.  In place."""
     for name, p in list(model.named_parameters()):
-        t = whole(p.detach(), lay.get(name), mg)
+        t = whole_of(model, name, p.detach())
         _replace(model, name, t.contiguous().clone(), p.requires_grad)
     _bind(model, None, {})
     return model
@@ -333,10 +379,18 @@ def _replace(model, name: str, t: torch.Tensor, grad: bool) -> None:
     setattr(mod, attr, torch.nn.Parameter(t, requires_grad=grad))
 
 
-def _bind(model, mg: Optional[ModelGroup], lay: Dict[str, Layout]) -> None:
+def _bind(model, mg: Optional[ModelGroup], lay: Dict[str, Layout],
+          dg: Optional[ModelGroup] = None,
+          dd: Optional[Dict[str, int]] = None) -> None:
+    dd = dict(dd or {})
     model.mg, model.layouts = mg, dict(lay)
+    model.dg, model.data_dims = dg, dd
     model.vocab_mg = mg if lay.get("embed") is not None else None
     for name, mod in model.named_modules():
+        mod.dg = dg
+        mod.fsdp_dims = {leaf: dd[f"{name}.{leaf}" if name else leaf]
+                         for leaf, _ in mod.named_parameters(recurse=False)
+                         if (f"{name}.{leaf}" if name else leaf) in dd}
         if not name:
             continue
         mode = _check_layer(name, mod, lay) if mg is not None else None

@@ -3,8 +3,8 @@ the port of ``repro/launch/mesh.py``'s ``make_host_mesh``.
 
 A function, not a module constant: importing this module touches no
 process group.  The reference's production meshes (``(16, 16)`` and
-``(2, 16, 16)`` TPU slices) and its TPU roofline constants have no
-counterpart here.
+``(2, 16, 16)``, 256 and 512 ranks) come with the next slice of the
+port; its TPU roofline constants do not carry over to the card.
 """
 from __future__ import annotations
 

@@ -17,7 +17,9 @@ Under tensor parallelism each layer runs its rank's share
 (``distributed/tensor_parallel.py``) and each cache leaf holds the rank's
 piece by ``distributed.sharding.cache_pspec``: KV heads where ``tp``
 divides them, else the positions (or image tokens) where it divides
-those, else the whole; the recurrent states their channels.
+those, else the whole; the recurrent states their channels.  On a model
+sharded over the data axes too (FSDP), each mode reads the layer through
+``fsdp.use``: its leaves whole, gathered at use, for this layer alone.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..distributed import fsdp
 from ..distributed.sharding import cache_model_dim
 from . import attention as attn
 from . import mamba as mb
@@ -107,6 +110,7 @@ def apply_layer_train(kind: str, p: Block, x, cfg, tables,
                       image_embeds=None):
     """One layer's training forward, the prefill's arithmetic with no
     cache: ``x (B, S, D)`` bf16 -> (``x``, the MoE aux loss or None)."""
+    p = fsdp.use(p)
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if kind == "attn":
         x = x + attn.attention_train(p.attn, h, tables, cfg)
@@ -126,6 +130,7 @@ def apply_layer_train(kind: str, p: Block, x, cfg, tables,
 
 def apply_layer_prefill(kind: str, p: Block, x, positions, cfg,
                         spec: attn.CacheSpec, tables, image_embeds=None):
+    p = fsdp.use(p)
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if kind == "attn":
         q, k, v = attn._qkv(p.attn, h, tables)
@@ -217,6 +222,7 @@ def apply_layer_decode(kind: str, p: Block, x, pos, cache, spec, cfg,
                        tables):
     """One token through one layer; ``cache`` (the layer's dict) is updated
     in place and returned."""
+    p = fsdp.use(p)
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     if kind == "attn":
         y, cache = attn.attention_decode(p.attn, h, pos, cache, spec, cfg,

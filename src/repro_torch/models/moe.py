@@ -21,6 +21,11 @@ expert outputs reduced before the combine), else the layer runs whole.
 The router and the capacity positions are computed on every rank from the
 same replicated input and weights, so the routing is bitwise the same on
 all of them.
+
+Where a step splits the batch over the data axes (``distributed/
+fsdp.py``) the groups are still the global token order's: a rank whose
+rows are not a whole number of groups gathers the rows of the data group
+first (:func:`moe_apply`).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import math
 
 import torch
 
+from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpar
 from .layers import BF16, F32, dense_init, param, silu
 
@@ -117,7 +123,20 @@ def _experts(p, xin: torch.Tensor, mg=None) -> torch.Tensor:
 
 def moe_apply(p, x: torch.Tensor, cfg):
     """x: ``(B, S, D)`` bf16 -> (``(B, S, D)`` bf16, the load-balancing
-    aux loss, an f32 scalar)."""
+    aux loss, an f32 scalar).  Where ``x`` is this rank's rows of a batch
+    split over ``p.rows`` (``fsdp.rows_over``) and a routing group of the
+    global batch would span ranks, the rows are gathered, the global
+    tokens routed and run, and this rank's rows kept."""
+    rows = getattr(p, "rows", None)
+    if rows is not None:
+        tokens = x.shape[0] * x.shape[1]
+        if tokens % min(cfg.moe.group_size, rows.size * tokens):
+            y, aux = _moe(p, fsdp.gather_rows(x, rows), cfg)
+            return fsdp.own_rows(y, rows), aux
+    return _moe(p, x, cfg)
+
+
+def _moe(p, x: torch.Tensor, cfg):
     e_n = cfg.moe.num_experts
     b, s, d = x.shape
     tokens = b * s

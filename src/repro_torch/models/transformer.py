@@ -30,7 +30,9 @@ tokens in its rows, the rows summed over the group), the tied head gives
 the rank's columns of the logits, :func:`loss_fn` is a vocab-parallel
 cross-entropy (the max, the sum of exponentials and the target logit each
 reduced over the group: the ``(B, S, V)`` logits are never gathered), and
-the prefill and decode gather their ``(B, V)`` logits.
+the prefill and decode gather their ``(B, V)`` logits.  Where the data
+axes split the embedding too (FSDP, ``distributed/fsdp.py``), the lookup
+and the head each gather it whole at their use.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.env import resolve_device
+from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpar
 from . import attention as attn
 from . import blocks
@@ -200,12 +203,13 @@ def _lookup(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     parallel, each rank's own rows (zero elsewhere) summed over the
     group."""
     mg, v0 = _vocab(model)
+    embed = fsdp.leaf(model, "embed")
     if mg is None:
-        return embed_lookup(model.embed, tokens)
-    vl = model.embed.shape[0]
+        return embed_lookup(embed, tokens)
+    vl = embed.shape[0]
     ids = tokens.long() - v0
     mine = (ids >= 0) & (ids < vl)
-    rows = embed_lookup(model.embed, ids.clamp(0, vl - 1))
+    rows = embed_lookup(embed, ids.clamp(0, vl - 1))
     return tpar.reduce_from(torch.where(mine[..., None], rows,
                                         rows.new_zeros(())), mg)
 
@@ -214,7 +218,7 @@ def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """The tied head: ``x (..., D)`` -> logits ``(..., V)`` bf16, this
     rank's columns where the vocabulary is split."""
     mg, _ = _vocab(model)
-    return tpar.copy_to(x, mg) @ model.embed.to(BF16).t()
+    return tpar.copy_to(x, mg) @ fsdp.leaf(model, "embed").to(BF16).t()
 
 
 def _gathered(model: Transformer, logits: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,21 @@
 AdamW; the port of ``repro/train/step.py``.
 
 Gradients come from ``loss.backward()`` into each parameter's ``.grad``
-(f32).  With ``accum_steps > 1`` the batch splits into ``(accum,
+(f32 for f32 master weights; a bf16 state, the reference's
+``BF16_STATE_ARCHS``, has bf16 gradients and hands them to the
+optimizer's mixed sequence, ``train/optimizer.py``).  With
+``accum_steps > 1`` the batch splits into ``(accum,
 B/accum)`` as the reference's does, each microbatch's backward adds its
 gradients to the last (the reference's running sum), and the summed loss
 and gradients are scaled by ``1/accum``.
 
-:func:`make_train_step` is the single-card step.
+:func:`make_train_step` is the single-card step; with a ``mesh`` it is
+the reference's GSPMD step on a mesh (:func:`_mesh_train_step`): the
+state
+placed by the sharding rules, the weights sharded over the data axes too
+where ``shard_model(..., fsdp=True)`` sharded them (FSDP,
+``distributed/fsdp.py``), the batch split over the data axes, the
+moments ZeRO-1's.
 :func:`make_local_accum_train_step` is the reference's shard_map step
 over the data axes of a ``DeviceMesh``: every rank takes the global batch,
 computes on its rows of dim 0, accumulates its raw gradients over the
@@ -50,18 +59,23 @@ from ..distributed.collectives import (all_gather_flat, axis_group,
                                        mesh_device, reduce_scatter)
 from ..distributed import tensor_parallel as tpar
 from ..distributed.compression import compress_with_feedback, int8_allreduce_
-from ..distributed.sharding import mesh_axes, whole_shape
+from ..distributed.sharding import dp_axes, mesh_axes, whole_shape
 from ..models.transformer import loss_fn, reference_paths, stacked_rank
-from .optimizer import (OptimizerConfig, adamw_update, clip_by_global_norm,
-                        make_scratch, scale_grads, schedule)
+from .optimizer import (OptimizerConfig, adam_consts, adamw_leaf,
+                        adamw_update, clip_by_global_norm, make_scratch,
+                        scale_grads, schedule)
 from .state import TrainState
 
 F32 = torch.float32
 
 
-def _backward(model, batch, cfg, remat_policy, accum_steps: int):
+def _backward(model, batch, cfg, remat_policy, accum_steps: int,
+              sums=None):
     """The loss summed over ``accum_steps`` microbatches of ``batch``
-    (detached), with the summed gradients in each parameter's ``.grad``."""
+    (detached), with the summed gradients in each parameter's ``.grad``;
+    with ``sums`` (a dict), a parameter that is not f32 hands each
+    microbatch's gradient to ``sums[name]`` instead, where they add up in
+    f32 (the reference's scan sums into an f32 accumulator)."""
     model.zero_grad(set_to_none=True)
     if accum_steps == 1:
         loss = loss_fn(model, batch, cfg, remat_policy)
@@ -80,28 +94,45 @@ def _backward(model, batch, cfg, remat_policy, accum_steps: int):
                      remat_policy)
         li.backward()
         loss = li.detach() if loss is None else loss + li.detach()
+        if sums is not None:
+            for name, p in model.named_parameters():
+                if p.dtype != F32:
+                    g, p.grad = p.grad, None
+                    sums[name] = g.to(F32) if name not in sums \
+                        else sums[name].add_(g)
     return loss
 
 
 def make_train_step(cfg, oc: OptimizerConfig, *,
                     remat_policy: Optional[str] = "full",
-                    compression: bool = False, accum_steps: int = 1):
+                    compression: bool = False, accum_steps: int = 1,
+                    mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
     model, moments and error buffer are updated in place and the step
     advances; ``metrics`` holds ``loss``, ``grad_norm`` (before the clip)
-    and ``lr``, f32 scalars on the model's device."""
+    and ``lr``, f32 scalars on the model's device.  With ``mesh``, the
+    reference's GSPMD step on a model ``shard_model`` sharded over it
+    (:func:`_mesh_train_step`)."""
+    if mesh is not None:
+        if compression:
+            raise ValueError("the step on a mesh has no compression: use "
+                             "make_local_accum_train_step's int8 mode")
+        return _mesh_train_step(cfg, oc, mesh, remat_policy=remat_policy,
+                                accum_steps=accum_steps)
 
     def train_step(state: TrainState, batch):
         model = state.params
         dev = state.step.device
         batch = {k: v.to(dev) for k, v in batch.items()}
-        loss = _backward(model, batch, cfg, remat_policy, accum_steps)
+        sums = {} if accum_steps > 1 else None
+        loss = _backward(model, batch, cfg, remat_policy, accum_steps, sums)
+        grads = {n: p.grad if p.grad is not None else sums[n]
+                 for n, p in model.named_parameters()}
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             loss = loss * inv
-            for p in model.parameters():
-                p.grad.mul_(inv)
-        grads = {n: p.grad for n, p in model.named_parameters()}
+            for g in grads.values():
+                g.mul_(inv)
         scratch = make_scratch(grads.values())
         grads, gnorm = clip_by_global_norm(grads, oc.clip_norm, scratch)
         error = state.error
@@ -200,22 +231,29 @@ def int8_reduce_leaf_(model, members: Members, groups, factor: float) -> None:
     _unflatten(members, flat, model, grad=True)
 
 
-def _grad_norm(model, mg) -> torch.Tensor:
-    """The global norm of the model's gradients, each logical element
-    counted once: the sharded leaves' squares summed over the model
-    group, the whole ones (equal on every rank) added once."""
+def _grad_norm(model, mg, grads=None, dg=None) -> torch.Tensor:
+    """The global norm of the model's gradients (``grads`` by name, else
+    each ``.grad``), each logical element counted once: the squares of
+    the leaves split over the model group summed over it, of those split
+    over the data group (FSDP) over that, the whole ones (equal on every
+    rank) added once."""
     lay = getattr(model, "layouts", {})
-    sharded, whole_sq = None, None
+    dd = getattr(model, "data_dims", {})
+    sums: Dict[Tuple[bool, bool], torch.Tensor] = {}
     for name, p in model.named_parameters():
-        sq = torch.sum(p.grad * p.grad)
-        if lay.get(name) is not None:
-            sharded = sq if sharded is None else sharded + sq
-        else:
-            whole_sq = sq if whole_sq is None else whole_sq + sq
-    if sharded is not None:
-        dist.all_reduce(sharded, group=mg.group)
-        whole_sq = sharded if whole_sq is None else whole_sq + sharded
-    return torch.sqrt(whole_sq)
+        g = (p.grad if grads is None else grads[name]).to(F32)
+        key = (dg is not None and name in dd, lay.get(name) is not None)
+        sq = torch.sum(g * g)
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = None
+    for (over_data, over_model) in sorted(sums):
+        sq = sums[(over_data, over_model)]
+        if over_data:
+            dist.all_reduce(sq, group=dg.group)
+        if over_model and mg is not None:
+            dist.all_reduce(sq, group=mg.group)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 # ---- the data-parallel step ----------------------------------------------------
@@ -439,3 +477,203 @@ def abstract_zero1_local_state(cfg, n_dp: int, tp: int = 1) -> TrainState:
     from .state import abstract_state
     return make_zero1_local_state(abstract_state(cfg, tp=tp).params, n_dp,
                                   tp)
+
+
+# ---- the GSPMD step on a mesh ----------------------------------------------------
+
+def _reduced(g: torch.Tensor, dg) -> torch.Tensor:
+    """``g`` summed over the data group in f32, in its own dtype (in
+    place for f32)."""
+    t = g.to(F32)
+    dist.all_reduce(t, group=dg.group)
+    return t.to(g.dtype)
+
+
+def _moment_dim(m, mesh, data_dim: Optional[int]) -> Optional[int]:
+    """The dim a ``DTensor`` moment splits over the data axes that its
+    parameter's piece does not (ZeRO-1's slice); None for a plain tensor
+    (the parameter's piece) and where there is none."""
+    if not hasattr(m, "to_local"):
+        return None
+    data = dp_axes(mesh_axes(mesh))
+    dims = {pl.dim for a, pl in zip(mesh.mesh_dim_names, m.placements)
+            if a in data and pl.is_shard()}
+    dims.discard(data_dim)
+    if len(dims) > 1:
+        raise ValueError(f"a moment split over the data axes on dims {dims}")
+    return dims.pop() if dims else None
+
+
+def _placed_like(new: torch.Tensor, old):
+    """A moment's new local tensor ``new`` in the ``DTensor`` placement of
+    ``old`` (``new`` itself where ``old`` is a plain tensor)."""
+    if not hasattr(old, "to_local"):
+        return new
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(new, old.device_mesh, old.placements,
+                              run_check=False, shape=old.shape,
+                              stride=old.stride())
+
+
+def _mesh_train_step(cfg, oc: OptimizerConfig, mesh, *,
+                     remat_policy: Optional[str] = "full",
+                     accum_steps: int = 1):
+    """The reference's GSPMD ``make_train_step`` (``jax.jit`` with the
+    state placed by ``param_shardings`` / ``moment_shardings``) on this
+    rank of ``mesh``, for a model that ``tensor_parallel.shard_model``
+    sharded over it (``fsdp`` or not) and a state of
+    ``train.state.init_state(model, mesh=mesh)`` (or restored by
+    ``reshard_restore``).  ``batch`` is the global batch.
+
+    * The batch splits into microbatches ``(accum, B / accum)``, and this
+      rank takes its rows of each by ``sharding.batch_axes``; its MoE
+      layers route over the global token order (``fsdp.rows_over``).
+    * Each microbatch's loss is this rank's mean over its rows, scaled by
+      ``1 / n`` (``n`` the ranks of the data axes) before the backward: the
+      FSDP leaves' gradients are reduce-scattered into their pieces in the
+      backward, the others all-reduced after it, so each microbatch's
+      gradient is the global batch's in the parameter's dtype, and they
+      add up in f32 over the microbatches, as the reference's scan does.
+    * The gradient norm counts each logical element once; the clip and
+      AdamW run on the pieces: an FSDP leaf against its piece's moments,
+      another leaf against ZeRO-1's slice of its moments, after which the
+      new slices are all-gathered over the data axes.  A leaf the model
+      axis holds in halves (the recurrent kinds' ``in_proj``) is taken to
+      its moments' contiguous layout and back.
+    * The state keeps its placements; the moments of a bf16 state turn
+      f32 after the first step (``train/optimizer.py``).
+
+    ``metrics``: the loss averaged over the data ranks, the gradient norm
+    before the clip, the learning rate."""
+    from ..distributed import fsdp
+    from ..distributed.sharding import batch_axes
+    axes = mesh_axes(mesh)
+    mg = tpar.model_group(mesh)
+    dg = fsdp.data_group(mesh)
+    n_dp = dg.size if dg is not None else 1
+    data_size = math.prod(axes[a] for a in dp_axes(axes) if a in axes)
+
+    def check(model):
+        have_mg = getattr(model, "mg", None)
+        if (mg is None) != (have_mg is None) or (
+                mg is not None and have_mg.group is not mg.group):
+            raise ValueError("the model is not sharded over this mesh's "
+                             "'model' axis (tensor_parallel.shard_model)")
+        have_dg = getattr(model, "dg", None)
+        if have_dg is not None and (dg is None or have_dg.group
+                                    is not dg.group):
+            raise ValueError("the model is sharded over another mesh's data "
+                             "axes")
+
+    def rows(batch):
+        """This rank's rows of each microbatch: ``(micro, n_b, k)``."""
+        b = next(iter(batch.values())).shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{accum_steps} microbatches")
+        mb = b // accum_steps
+        ba = batch_axes(axes, b)
+        n_b = math.prod(axes[a] for a in ba) if ba else 1
+        if n_b not in (1, data_size):
+            raise NotImplementedError(f"a batch of {b} splits over {ba} "
+                                      f"alone, not every data axis")
+        if mb % n_b:
+            raise ValueError(f"microbatch {mb} does not split over {n_b} "
+                             f"data-parallel ranks")
+        micro = {k: v.reshape((accum_steps, mb) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        return micro, n_b, (dg.rank if n_b > 1 else 0)
+
+    def backward(model, batch):
+        """The microbatches' summed loss and each parameter's gradient of
+        the global batch (f32 sums over microbatches where there are
+        several)."""
+        dev = next(model.parameters()).device
+        micro, n_b, k = rows(batch)
+        per = next(iter(micro.values())).shape[1] // n_b
+        dd = getattr(model, "data_dims", {})
+        grads: Dict[str, torch.Tensor] = {}
+        loss = None
+        model.zero_grad(set_to_none=True)
+        with fsdp.rows_over(model, dg if n_b > 1 else None):
+            for i in range(accum_steps):
+                mine = {key: v[i, k * per:(k + 1) * per].to(dev)
+                        for key, v in micro.items()}
+                li = loss_fn(model, mine, cfg, remat_policy)
+                (li * (1.0 / n_dp) if n_dp > 1 else li).backward()
+                loss = li.detach() if loss is None else loss + li.detach()
+                for name, p in model.named_parameters():
+                    g, p.grad = p.grad, None
+                    if dg is not None and name not in dd:
+                        g = _reduced(g, dg)
+                    if name not in grads:
+                        grads[name] = g.to(F32) if accum_steps > 1 else g
+                    else:
+                        grads[name].add_(g)
+        return loss, grads
+
+    def update(model, grads, state):
+        """Clip and AdamW on the pieces; returns ``(mu, nu, grad_norm,
+        lr)``."""
+        dd = getattr(model, "data_dims", {})
+        lay = getattr(model, "layouts", {})
+        gnorm = _grad_norm(model, mg, grads, dg)
+        scale_grads(grads, gnorm, oc.clip_norm)
+        consts = adam_consts(state.step, oc)
+        mu, nu = dict(state.mu), dict(state.nu)
+        for name, p in model.named_parameters():
+            g = grads.pop(name)
+            m, v = mu[name], nu[name]
+            z = _moment_dim(m, mesh, dd.get(name))
+            layout = lay.get(name)
+            halves = (layout is not None and layout[0] == "halves"
+                      and hasattr(m, "to_local"))
+            flat = ("shard", layout[1]) if halves else None
+            pp = p.detach()
+            if halves:      # to the moments' contiguous layout
+                g = tpar.take(tpar.whole(g, layout, mg), flat, mg.rank,
+                              mg.size)
+                pp = tpar.take(tpar.whole(pp, layout, mg), flat, mg.rank,
+                               mg.size)
+            if z is not None:
+                g = g.chunk(n_dp, dim=z)[dg.rank]
+                pp = pp.chunk(n_dp, dim=z)[dg.rank]
+            if halves or z is not None:
+                pp = pp.contiguous()
+            g = g.contiguous()
+            ml = m.to_local() if hasattr(m, "to_local") else m
+            vl = v.to_local() if hasattr(v, "to_local") else v
+            s = torch.empty(pp.shape, dtype=F32, device=pp.device)
+            m2, v2 = adamw_leaf(name, pp, g, ml, vl, s, oc, consts)
+            del g, s
+            if m2 is not ml:
+                mu[name] = _placed_like(m2, m)
+            if v2 is not vl:
+                nu[name] = _placed_like(v2, v)
+            if z is not None:
+                pp = fsdp.all_gather_dim(pp, z, dg)
+            if halves:
+                pp = tpar.take(tpar.whole(pp, flat, mg), layout, mg.rank,
+                               mg.size)
+            if halves or z is not None:
+                p.detach().copy_(pp)
+        return mu, nu, gnorm, consts[0]
+
+    def train_step(state: TrainState, batch):
+        model = state.params
+        check(model)
+        loss, grads = backward(model, batch)
+        inv = 1.0 / accum_steps
+        with torch.no_grad():
+            if accum_steps > 1:
+                loss = loss * inv
+                for g in grads.values():
+                    g.mul_(inv)
+            if dg is not None:
+                dist.all_reduce(loss, group=dg.group)
+                loss = loss / n_dp
+            mu, nu, gnorm, lr = update(model, grads, state)
+        new_state = TrainState(state.step + 1, model, mu, nu, None)
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return train_step

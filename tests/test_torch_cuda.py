@@ -1107,3 +1107,68 @@ def test_tensor_parallel_on_the_card(cuda_device, tmp_path):
                                    rtol=5e-4)
         np.testing.assert_allclose(got["sharded.logits"],
                                    got["whole.logits"], rtol=2e-2, atol=2e-2)
+
+
+def test_fsdp_region_on_the_card(cuda_device, tmp_path):
+    """A ``(2, 1)`` gloo world, both ranks on this card
+    (``tests/torch_fsdp_world.py``'s ``card`` case): the data axis's
+    gather is bitwise ``torch.cat`` of the ranks' pieces, its backward
+    bitwise the f32 sum of the ranks' gradients cut to the rank's piece,
+    on CUDA tensors, bf16 and f32."""
+    import json
+    import os
+    import sys
+    from repro_torch.scripts import local_world
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"mesh": [2, 1], "device": "cuda",
+                                "cases": ["card"]}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, "..", "src"), here]))
+    runs = local_world.spawn([sys.executable,
+                              os.path.join(here, "torch_fsdp_world.py"),
+                              str(spec), str(tmp_path)], 2, timeout=300,
+                             env=env, workdir=str(tmp_path))
+    for k, run in enumerate(runs):
+        assert run.returncode == 0, f"rank {k}:\n{run.stdout}{run.stderr}"
+        errors = json.loads((tmp_path / f"rank{k}.json").read_text())
+        assert not errors["errors"], errors
+        got = dict(np.load(tmp_path / f"card_{k}.npz"))
+        assert len(got) == 8 and all(bool(v) for v in got.values()), got
+
+
+@pytest.mark.parametrize("moment", [torch.bfloat16, torch.float32])
+def test_bf16_adamw_sequence_on_the_card_matches_the_cpu(cuda_device,
+                                                         moment):
+    """The optimizer's bf16 sequence (bf16 parameters and gradients, the
+    clip, moments of either dtype) on CUDA tensors equals its CPU run
+    bitwise, given the same learning rate and bias corrections."""
+    from repro_torch.train import optimizer as opt
+    oc = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=50)
+    g = torch.Generator().manual_seed(3)
+    leaves = {"layers.0.attn.wq": (64, 4, 16), "final_norm": (64,),
+              "embed": (256, 64)}
+    host = {name: [torch.randn(s, generator=g).to(dt) for dt in
+                   (torch.bfloat16, torch.bfloat16, moment, moment)]
+            for name, s in leaves.items()}
+    for name in host:
+        host[name][3] = host[name][3].abs()
+    consts = opt.adam_consts(torch.tensor(3, dtype=torch.int32), oc)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        ps = {n: [t.to(dev, copy=True) for t in v] for n, v in host.items()}
+        grads = {n: v[1] for n, v in ps.items()}
+        opt.scale_grads(grads, torch.tensor(40.0, device=dev), 1.0)
+        out = {}
+        for n, (p, gr, m, v) in ps.items():
+            s = torch.empty(p.shape, dtype=torch.float32, device=dev)
+            m2, v2 = opt.adamw_leaf(n, p, grads[n], m, v, s, oc,
+                                    tuple(c.to(dev) for c in consts))
+            out[n] = [p.cpu(), m2.cpu(), v2.cpu()]
+        runs[str(dev)] = out
+    cpu, card = runs["cpu"], runs[str(cuda_device)]
+    for n in leaves:
+        assert card[n][0].dtype == torch.bfloat16
+        assert card[n][1].dtype == card[n][2].dtype == torch.float32
+        for a, b in zip(card[n], cpu[n]):
+            assert torch.equal(a, b), n

@@ -68,10 +68,11 @@ def reference(arch, tp):
     return flat_params(jp), out
 
 
-def spawn_world(tmp, name, mesh, cases, inputs, **extra):
+def spawn_world(tmp, name, mesh, cases, inputs,
+                script="torch_tp_world.py", **extra):
     """Start a gloo world of ``mesh[0] * mesh[1]`` ranks of the world
-    script in the background; returns ``(directory, size, future-like
-    callable that waits and returns the ranks' runs)``."""
+    ``script`` in the background; returns ``(directory, size, future-like
+    callable that waits and returns the ranks' errors)``."""
     from concurrent.futures import ThreadPoolExecutor
     d = tmp / name
     d.mkdir()
@@ -82,7 +83,7 @@ def spawn_world(tmp, name, mesh, cases, inputs, **extra):
     n = mesh[0] * mesh[1]
     pool = ThreadPoolExecutor(1)
     fut = pool.submit(local_world.spawn,
-                      [sys.executable, os.path.join(HERE, "torch_tp_world.py"),
+                      [sys.executable, os.path.join(HERE, script),
                        str(d / "spec.json"), str(d)], n, timeout=600,
                       env=env, workdir=str(d))
 
