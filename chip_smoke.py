@@ -5,7 +5,9 @@
     python3 chip_smoke.py --parent DIR   # also time DIR's kernels in turns
     python3 chip_smoke.py --cards 4  # the sharded load and data-parallel,
                                      # tensor-parallel and FSDP training
+                                     # and the local step at fsdp=True
                                      # over NCCL, 4 cards
+    python3 chip_smoke.py --cards 4 --only launch   # one of those
 
 Needs one CUDA device of compute capability >= 9.0 and the CUDA toolkit
 (the kernels are built from ``src/repro_torch/csrc`` at first use).  It
@@ -240,6 +242,35 @@ Phases (any failure exits non-zero):
     model on the same batch (step 0's loss within 5e-4);
     ``--cards N`` trains it 4 of 56 layers deep at ``(N, 1)`` and ``(N/2,
     2)`` over NCCL, one rank a card;
+3l. (run last, after 3k) the launch tooling, the local step at
+    ``fsdp=True`` and the example twins, its numbers under ``launch`` in
+    the JSON.  (b) First, in worker processes while the rest runs, the dry
+    run (``launch.dryrun.run_cell`` on fake ``cuda`` tensors in a fake
+    world of the production mesh) of mixtral-8x22b ``train_4k`` single
+    (FSDP and the bf16 state by the reference's defaults),
+    phi4-mini-3.8b ``train_4k`` single in ``local_zero1`` (both cut to one
+    microbatch), phi4-mini-3.8b ``decode_32k`` multi and falcon-mamba-7b
+    ``long_500k`` multi: each record's trace seconds, FLOPs a device,
+    collective bytes by op, argument and temp GB beside its analytic
+    terms.  (a) The examples on the card: ``quickstart`` (scale 14; the
+    launch counts set to 0 just before and read just after: the load's
+    three kernels must launch; its CSR against the numpy oracle),
+    ``serve_lm``, ``train_lm`` (the reduced config, 60 steps: the mean
+    loss of the last 10 below the first 10's) and ``distributed_load`` in
+    an NCCL world of one in this process (its launches counted) and a
+    gloo world of two on this card.  (c) Beside (a), phi4-mini-3.8b at
+    full width, 4 of 32 layers, f32, in a gloo world of two on this card
+    (``--launch-rank``, mesh ``(2, 1)``): 2 local-accumulation steps at
+    ``fsdp=True`` and 2 at ``fsdp=False`` from the same weights, the first
+    of each under ``launch.counters.Recorder``: the losses equal on both
+    ranks and between the two runs, bitwise; the same step through the dry
+    run in a fake ``(2, 1)`` world gives rank 0's collective calls and
+    bytes per op and its FLOPs exactly; its argument + temp bytes beside
+    the allocator's peak over the real first step.  ``--cards N`` runs
+    mixtral-8x22b at full width, 1 of 56 layers, with its bf16 state at
+    ``(N, 1)`` over NCCL, one rank a card, 2 local steps at ``fsdp=True``
+    (the losses equal on every rank), against a fake ``(N, 1)`` world that
+    stands for NCCL;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -1572,32 +1603,50 @@ def run_world(path22, oracle, world, backend):
     return row, launches
 
 
-def sharded_across_cards(torch, cards: int) -> int:
+CARDS_SECTIONS = ("load", "dp", "tp", "fsdp", "launch")
+
+
+def sharded_across_cards(torch, cards: int, only=CARDS_SECTIONS) -> int:
     """``--cards N``: the sharded load as it is deployed, one rank a card
     over NCCL, in worlds of 1 and of N ranks on the scale-22 text, each
     rank's rows bitwise against the oracle; then data-parallel training
-    across the N cards (:func:`train_dp_across_cards`).  Prints a JSON
-    line for each and writes ``build/repro_torch/chip_smoke_cards.json``."""
+    across the N cards (:func:`train_dp_across_cards`), tensor-parallel
+    decode and training, FSDP training and the local step at
+    ``fsdp=True`` (:func:`launch_across_cards`); ``only`` picks among
+    ``CARDS_SECTIONS``.  Prints a JSON line for each and writes
+    ``build/repro_torch/chip_smoke_cards.json``."""
     from repro_torch.core import env
     from repro_torch.kernels import _lib
     require(torch.cuda.device_count() >= cards,
             f"--cards {cards}: {torch.cuda.device_count()} card(s) here")
     _lib.lib()                        # built once, before the ranks start
-    p22, s22, d22, _ = make_graph("rmat22.el", MAIN_SCALE, False, False, SEED)
-    oracle = csr_oracle(s22, d22, None, int(max(s22.max(), d22.max())) + 1)
-    del s22, d22
-    report = {"platform": env.platform_profile()}
-    for world in (1, cards):
-        report[f"d{world}"], report[f"d{world}_launches"] = run_world(
-            p22, oracle, world, "nccl")
-        say(json.dumps({f"nccl_d{world}": report[f"d{world}"]}))
-    del oracle
-    report["train_dp"] = train_dp_across_cards(torch, cards, p22)
-    say(json.dumps({f"train_dp_nccl_d{cards}": report["train_dp"]}))
-    report["tp"] = tp_across_cards(torch, cards, p22)
-    say(json.dumps({f"tp_nccl_{cards}": report["tp"]}))
-    report["fsdp"] = fsdp_across_cards(torch, cards, p22)
-    say(json.dumps({f"fsdp_nccl_{cards}": report["fsdp"]}))
+    report = {"platform": env.platform_profile(), "sections": list(only)}
+    if {"load", "dp", "tp", "fsdp"} & set(only):
+        p22, s22, d22, _ = make_graph("rmat22.el", MAIN_SCALE, False, False,
+                                      SEED)
+    if "load" in only:
+        oracle = csr_oracle(s22, d22, None,
+                            int(max(s22.max(), d22.max())) + 1)
+        del s22, d22
+        for world in (1, cards):
+            report[f"d{world}"], report[f"d{world}_launches"] = run_world(
+                p22, oracle, world, "nccl")
+            say(json.dumps({f"nccl_d{world}": report[f"d{world}"]}))
+        del oracle
+    if "dp" in only:
+        report["train_dp"] = train_dp_across_cards(torch, cards, p22)
+        say(json.dumps({f"train_dp_nccl_d{cards}": report["train_dp"]}))
+    if "tp" in only:
+        report["tp"] = tp_across_cards(torch, cards, p22)
+        say(json.dumps({f"tp_nccl_{cards}": report["tp"]}))
+    if "fsdp" in only:
+        report["fsdp"] = fsdp_across_cards(torch, cards, p22)
+        say(json.dumps({f"fsdp_nccl_{cards}": report["fsdp"]}))
+    if "launch" in only:
+        report["launch"] = launch_across_cards(torch, cards)
+        say(json.dumps({f"launch_nccl_{cards}": {
+            k: v for k, v in report["launch"].items() if k != "ranks"}
+            | {"rank0": report["launch"]["ranks"][0]}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -4162,6 +4211,319 @@ def fsdp_across_cards(torch, cards, path22):
     return {"world_s": wall, "ranks": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the launch tooling, the local step at fsdp=True, the examples
+# ---------------------------------------------------------------------------
+
+# the dry run's cells on the production meshes (fake cuda tensors): the
+# reference's defaults (FSDP and the bf16 state of the MoE), the training
+# cells cut to one microbatch (the --all dry run keeps default_accum)
+LAUNCH_CELLS = (("mixtral-8x22b", "train_4k", False, {"accum": 1}),
+                ("phi4-mini-3.8b", "train_4k", False,
+                 {"step_mode": "local_zero1", "accum": 1}),
+                ("phi4-mini-3.8b", "decode_32k", True, {}),
+                ("falcon-mamba-7b", "long_500k", True, {}))
+LOCAL_ARCH, LOCAL_LAYERS = "phi4-mini-3.8b", 4    # full width, 4 of 32
+LOCAL_CARDS_ARCH, LOCAL_CARDS_LAYERS = "mixtral-8x22b", 1   # 1 of 56
+LOCAL_STEPS, LOCAL_BATCH, LOCAL_SEQ = 2, 4, 128
+LOCAL_OC = dict(lr=3e-5, warmup_steps=0, decay_steps=100)
+# train_lm's own schedule warms up over 20 steps: at 20 steps its loss
+# has not moved yet (5.7366 -> 5.7375 on the CPU), at 60 it falls
+EXAMPLE_TRAIN_STEPS = 60
+
+
+def launch_cells_start():
+    """Phase 3l (b), started in worker processes (the dry run is host
+    work): ``dryrun.cell_job`` of each of ``LAUNCH_CELLS`` on fake
+    ``cuda`` tensors.  Returns ``(pool, futures)``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun
+    pool = ProcessPoolExecutor(len(LAUNCH_CELLS), mp_context=multiprocessing
+                               .get_context("spawn"))
+    futs = [pool.submit(dryrun.cell_job, (arch, shape, mp, dict(
+        kw, device="cuda", verbose=False)))
+            for arch, shape, mp, kw in LAUNCH_CELLS]
+    return pool, futs
+
+
+def launch_cells_row(pool, futs):
+    """Phase 3l (b)'s records, each printed beside its analytic terms."""
+    rows = []
+    try:
+        for f in futs:
+            rec = f.result(timeout=600)
+            require(rec["status"] == "ok", f"dry run of {rec['arch']} x "
+                    f"{rec['shape']} ({rec['mesh']}): {rec}")
+            rows.append({k: rec[k] for k in (
+                "arch", "shape", "mesh", "chips", "meta", "lower_s",
+                "compile_s", "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "collective_calls_per_device",
+                "memory", "analytic_flops_total",
+                "analytic_bytes_per_device", "model_flops")})
+            r = rows[-1]
+            require(r["flops_per_device"] > 0 and r["memory"]["temp_gb"] > 0,
+                    f"dry run of {r['arch']} x {r['shape']}: counted")
+            say(json.dumps({"dry_run": {
+                "cell": f"{r['arch']} x {r['shape']} ({r['mesh']})",
+                "trace_s": r["compile_s"], "flops_per_device":
+                r["flops_per_device"], "analytic_flops_per_device":
+                r["analytic_flops_total"] / r["chips"],
+                "analytic_bytes_per_device": r["analytic_bytes_per_device"],
+                "collective_bytes": r["collective_bytes_per_device"],
+                "argument_gb": r["memory"]["argument_gb"],
+                "temp_gb": r["memory"]["temp_gb"]}}))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return rows
+
+
+def launch_examples(torch, kernels, row):
+    """Phase 3l (a): the example twins on the card.  Returns the loader's
+    launch counts per path."""
+    from repro_torch.examples import (distributed_load, quickstart, serve_lm,
+                                      train_lm)
+    work = os.path.join(OUT, "quickstart")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    got, secs, lc = counted(torch, kernels,
+                            lambda: quickstart.run("cuda", work))
+    need(lc, LOAD_KERNELS, "quickstart")
+    edges = np.loadtxt(os.path.join(work, "web.el"), dtype=np.int64) - 1
+    offsets, targets, _ = csr_oracle(edges[:, 0], edges[:, 1], None, got["v"])
+    require(np.array_equal(got["csr"].offsets, offsets)
+            and np.array_equal(got["csr"].targets, targets),
+            "quickstart: its CSR against the numpy oracle")
+    shutil.rmtree(work, ignore_errors=True)
+    row["quickstart"] = {"s": secs, "launches": lc, "v": got["v"],
+                         "e": got["e"]}
+
+    t0 = time.perf_counter()
+    require(serve_lm.main(["--device", "cuda"]) == 0, "serve_lm")
+    row["serve_lm_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    hist = train_lm.run(train_lm.parse(["--device", "cuda", "--steps",
+                                        str(EXAMPLE_TRAIN_STEPS)]))
+    losses = [h["loss"] for h in hist]
+    require(all(np.isfinite(losses))
+            and np.mean(losses[-10:]) < np.mean(losses[:10]),
+            f"train_lm: the loss falls ({losses[:3]} .. {losses[-3:]})")
+    row["train_lm"] = {"s": time.perf_counter() - t0, "steps": len(losses),
+                       "first10": float(np.mean(losses[:10])),
+                       "last10": float(np.mean(losses[-10:]))}
+
+    d1, secs, lc1 = counted(torch, kernels, lambda: distributed_load
+                            .rank_main("nccl", "cuda"))
+    need(lc1, LOAD_KERNELS, "distributed_load, an NCCL world of one")
+    row["distributed_load"] = {"nccl_d1_s": secs, "launches": lc1}
+    t0 = time.perf_counter()
+    require(distributed_load.main(["--device", "cuda", "--world", "2",
+                                   "--backend", "gloo"]) == 0,
+            "distributed_load, a gloo world of two on this card")
+    row["distributed_load"]["gloo_d2_s"] = time.perf_counter() - t0
+    say(json.dumps({"examples": row}))
+    return {"launch: quickstart": lc,
+            "launch: distributed_load (NCCL, d=1)": lc1}
+
+
+def local_batch(torch, cfg, dev):
+    g = torch.Generator().manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (LOCAL_BATCH, LOCAL_SEQ + 1),
+                         generator=g, dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous().to(dev),
+            "labels": toks[:, 1:].contiguous().to(dev)}
+
+
+def local_cfg(arch, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def local_runs(torch, mesh, rank, cfg_row):
+    """One rank of phase 3l (c) (and of ``--cards``' local step): the
+    local-accumulation step at ``fsdp=True`` (``cfg_row["runs"]`` holds
+    ``"fsdp"`` and maybe ``"whole"``, ``fsdp=False``) from the seed's
+    weights, ``LOCAL_STEPS`` steps, the first under
+    ``launch.counters.Recorder``: losses, gradient norms, step ms, the
+    recorder's counts and memory, the allocator's peak over the first
+    step and the bytes allocated before it."""
+    import torch.distributed as dist
+    from repro_torch.configs import BF16_STATE_ARCHS
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import mesh_device
+    from repro_torch.distributed.sharding import dp_axes, mesh_axes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import cast_model, init_state
+    from repro_torch.train.step import make_local_accum_train_step
+    dev = mesh_device(mesh)
+    cfg = local_cfg(cfg_row["arch"], cfg_row["layers"])
+    dtype = torch.bfloat16 if cfg.name in BF16_STATE_ARCHS else None
+    batch = local_batch(torch, cfg, dev)
+    out = {}
+    for run in cfg_row["runs"]:
+        free_card(torch)
+        model = init_params(cfg, SEED, device=dev, dtype=torch.float32)
+        if cfg_row["backend"] == "nccl":
+            for p in model.parameters():
+                dist.broadcast(p.detach(), src=0)
+        if dtype is not None:
+            cast_model(model, dtype)
+        tpar.shard_model(model, cfg, mesh, fsdp=run == "fsdp")
+        state = init_state(model)
+        step = make_local_accum_train_step(
+            cfg, OptimizerConfig(**LOCAL_OC), mesh, remat_policy="full",
+            batch_axes=dp_axes(mesh_axes(mesh)))
+        losses, norms, ms = [], [], []
+        r = {}
+        for i in range(LOCAL_STEPS):
+            torch.cuda.synchronize()
+            if i == 0:
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                args = (state, batch)
+                (state, m), rec, _ = dryrun.measure(step, args)
+                losses.append(float(m["loss"]))
+                r.update(dryrun.counts_of(rec),
+                         memory=dryrun.memory_of(args, (state, m), rec),
+                         allocated_before_bytes=before,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+                del args, rec
+            else:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        r.update(losses=losses, grad_norms=norms, step_ms=ms,
+                 state_bytes=sum(p.numel() * p.element_size()
+                                 for p in state.params.parameters())
+                 + sum(t.numel() * t.element_size() for t in
+                       list(state.mu.values()) + list(state.nu.values())))
+        require(all(np.isfinite(losses)), f"local {run} rank {rank}: "
+                f"finite losses ({losses})")
+        out[run] = r
+        del state, model, step
+    free_card(torch)
+    return out
+
+
+def launch_rank(cfg_path) -> int:
+    """One rank of a phase-3l world (``--launch-rank``)."""
+    import torch
+    from repro_torch.scripts import local_world
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(int(os.environ["RANK"])
+                          % torch.cuda.device_count())
+    mesh, rank, _ = local_world.join(cfg["backend"], "cuda", cfg["mesh"],
+                                     ("data", "model"))
+    try:
+        rows = local_runs(torch, mesh, rank, cfg)
+    finally:
+        local_world.leave()
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def local_fake(torch, arch, layers, mesh_shape, like):
+    """The same local step through the dry run in a fake world of
+    ``mesh_shape`` (standing for ``like``), on fake ``cuda`` tensors, as
+    rank 0."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.shapes import ShapeCase
+    with fake_world(mesh_shape[0] * mesh_shape[1], like=like):
+        mesh = init_device_mesh("cuda", tuple(mesh_shape),
+                                mesh_dim_names=("data", "model"))
+        return dryrun.measure_cell(
+            local_cfg(arch, layers), ShapeCase("smoke", LOCAL_SEQ,
+                                               LOCAL_BATCH, "train"),
+            mesh, device="cuda", step_mode="local_accum", fsdp=True,
+            accum=1, remat_policy="full")
+
+
+def check_local(rows, fake, what):
+    """Every rank's losses equal, the ``fsdp=True`` step's equal to the
+    ``fsdp=False`` step's where both ran, and the fake world's
+    collectives and FLOPs equal rank 0's."""
+    first = rows[0]["fsdp"]
+    for k, r in enumerate(rows):
+        require(r["fsdp"]["losses"] == first["losses"],
+                f"{what}: rank {k}'s losses {r['fsdp']['losses']} equal "
+                f"rank 0's {first['losses']}")
+        if "whole" in r:
+            require(r["fsdp"]["losses"] == r["whole"]["losses"],
+                    f"{what}: rank {k}: fsdp=True's losses "
+                    f"{r['fsdp']['losses']} equal fsdp=False's "
+                    f"{r['whole']['losses']}")
+    for key in ("collective_calls_per_device", "collective_bytes_per_device",
+                "flops_per_device"):
+        require(fake[key] == first[key], f"{what}: the fake world's {key} "
+                f"{fake[key]} equal the real world's {first[key]}")
+
+
+def phase_launch(torch, kernels, report):
+    """Phase 3l: (a) the example twins on the card, (b) the dry run of
+    ``LAUNCH_CELLS`` (started first, in worker processes), (c) the
+    local-accumulation step at ``fsdp=True`` at full width in a gloo world
+    of two on this card against ``fsdp=False`` and against a fake world.
+    Returns the loader's launch counts per path."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    row = {}
+    report["launch"] = row
+    from concurrent.futures import ThreadPoolExecutor
+    pool, futs = launch_cells_start()
+    t0 = time.perf_counter()
+    # (c)'s world (its ranks are processes of their own) beside (a)
+    with ThreadPoolExecutor(1) as worlds:
+        world = worlds.submit(tp_world, "launch", (2, 1), "gloo", [],
+                              flag="--launch-rank", arch=LOCAL_ARCH,
+                              layers=LOCAL_LAYERS, runs=["fsdp", "whole"])
+        by_path = launch_examples(torch, kernels,
+                                  row.setdefault("examples", {}))
+        wall, rows = world.result()
+    fake = local_fake(torch, LOCAL_ARCH, LOCAL_LAYERS, (2, 1), "gloo")
+    check_local(rows, fake, "local step at fsdp=True, (2, 1) over gloo")
+    mem = fake["memory"]
+    row["local"] = {"what": "phi4-mini-3.8b at full width, 4 of 32 layers, "
+                    "both ranks on this card over gloo",
+                    "world_s": wall, "s": time.perf_counter() - t0,
+                    "ranks": rows, "fake": fake,
+                    "fake_argument_plus_temp_bytes":
+                    (mem["argument_gb"] + mem["temp_gb"]) * 1e9,
+                    "real_peak_bytes": rows[0]["fsdp"]["peak_bytes"]}
+    say(json.dumps({"launch_local": {k: v for k, v in row["local"].items()
+                                     if k != "ranks"} | {"rank0": rows[0]}}))
+
+    row["dry_run"] = launch_cells_row(pool, futs)
+    row["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 3l: the examples, the dry run of {len(LAUNCH_CELLS)} cells "
+        f"and the local step at fsdp=True check out on the card "
+        f"({row['phase_s']:.1f}s)")
+    return by_path
+
+
+def launch_across_cards(torch, cards):
+    """``--cards N``'s local step at ``fsdp=True``: mixtral-8x22b at full
+    width, ``LOCAL_CARDS_LAYERS`` deep, its bf16 state, at ``(N, 1)`` over
+    NCCL, one rank a card, against a fake ``(N, 1)`` world that stands
+    for NCCL."""
+    wall, rows = tp_world("launch_cards", (cards, 1), "nccl", [],
+                          flag="--launch-rank", arch=LOCAL_CARDS_ARCH,
+                          layers=LOCAL_CARDS_LAYERS, runs=["fsdp"])
+    fake = local_fake(torch, LOCAL_CARDS_ARCH, LOCAL_CARDS_LAYERS,
+                      (cards, 1), "nccl")
+    check_local(rows, fake, f"--cards {cards} local step at fsdp=True")
+    return {"world_s": wall, "ranks": rows, "fake": fake}
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -4619,6 +4981,10 @@ def main() -> int:
     ap.add_argument("--dp-rank", metavar="CFG", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", metavar="CFG", help=argparse.SUPPRESS)
     ap.add_argument("--fsdp-rank", metavar="CFG", help=argparse.SUPPRESS)
+    ap.add_argument("--launch-rank", metavar="CFG", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=CARDS_SECTIONS, action="append",
+                    help="with --cards: run only these sections "
+                         "(repeatable; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4636,8 +5002,11 @@ def main() -> int:
         return tp_rank(args.tp_rank)
     if args.fsdp_rank:                   # a rank of a phase-3k world
         return fsdp_rank(args.fsdp_rank)
+    if args.launch_rank:                 # a rank of a phase-3l world
+        return launch_rank(args.launch_rank)
     if args.cards:
-        return sharded_across_cards(torch, args.cards)
+        return sharded_across_cards(torch, args.cards,
+                                    args.only or CARDS_SECTIONS)
     import repro_torch
     from repro_torch import kernels
     from repro_torch.core import env
@@ -4724,6 +5093,7 @@ def main() -> int:
     by_path.update(phase_train_dp(torch, kernels, p22, report))
     by_path.update(phase_tp(torch, kernels, p22, report))
     by_path.update(phase_fsdp(torch, kernels, p22, report))
+    by_path.update(phase_launch(torch, kernels, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

@@ -20,12 +20,24 @@ import torch.distributed as dist
 from ..core.distributed import _axis as axis_group          # noqa: F401
 from ..core.distributed import _mesh_device as mesh_device  # noqa: F401
 
+# the backend a ``fake`` world stands for (``launch.mesh.fake_world``)
+FAKE_ROUTE = [None]
+
+
+def is_nccl(group) -> bool:
+    """Whether ``group`` runs NCCL's route: an NCCL group, or a fake one
+    that stands for NCCL."""
+    backend = dist.get_backend(group)
+    if backend == "fake":
+        return FAKE_ROUTE[0] == "nccl"
+    return backend == "nccl"
+
 
 def reduce_scatter(out: torch.Tensor, flat: torch.Tensor, group) -> None:
     """``out`` (``(c,)``) := the sum over the group's ranks of segment
     ``k`` of their ``flat`` (``(n * c,)``), on rank ``k``."""
     n = group.size()
-    if dist.get_backend(group) == "nccl":
+    if is_nccl(group):
         dist.reduce_scatter_tensor(out, flat, group=group)
         return
     parts = torch.empty_like(flat)
@@ -40,7 +52,7 @@ def reduce_scatter(out: torch.Tensor, flat: torch.Tensor, group) -> None:
 def all_gather_flat(out: torch.Tensor, shard: torch.Tensor, group) -> None:
     """``out`` (``(n * c,)``) := every rank's ``shard`` (``(c,)``) in rank
     order; ``shard`` may be this rank's segment of ``out``."""
-    if dist.get_backend(group) == "nccl":
+    if is_nccl(group):
         dist.all_gather_into_tensor(out, shard, group=group)
         return
     dist.all_gather(list(out.view(group.size(), -1).unbind(0)),

@@ -41,7 +41,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from .collectives import reduce_scatter
+from .collectives import is_nccl, reduce_scatter
 from .sharding import dp_axes, mesh_axes
 from .tensor_parallel import ModelGroup
 
@@ -100,7 +100,7 @@ def reduce_scatter_dim(g: torch.Tensor, dim: int,
     flat = g.movedim(dim, 0).contiguous()
     shape = (flat.shape[0] // dg.size,) + tuple(flat.shape[1:])
     out = torch.empty(flat.numel() // dg.size, dtype=F32, device=g.device)
-    if dist.get_backend(dg.group) == "nccl":
+    if is_nccl(dg.group):
         reduce_scatter(out, flat.view(-1).to(F32), dg.group)
     else:
         parts = torch.empty_like(flat).view(dg.size, -1)
@@ -180,6 +180,46 @@ def use(mod):
     if getattr(mod, "dg", None) is None:
         return mod
     return _Whole(mod)
+
+
+# ---- whole over the data axes -----------------------------------------------
+
+@torch.no_grad()
+def unshard(model, moments=()):
+    """Every leaf of ``model`` that the data axes split gathered whole
+    over its data group, in place, and the group unbound: the model reads
+    as one sharded over ``"model"`` alone.  Each of ``moments`` (dicts
+    keyed by parameter name, tensors of their parameter's piece) is
+    gathered alike into a new dict.  Returns ``(held, moments)``; ``held``
+    is what :func:`reshard` takes."""
+    from . import tensor_parallel as tpar
+    dg, dims = model.dg, dict(model.data_dims)
+    for name, p in list(model.named_parameters()):
+        if name in dims:
+            tpar._replace(model, name, all_gather_dim(p, dims[name], dg),
+                          p.requires_grad)
+    tpar._bind(model, model.mg, model.layouts)
+    return (dg, dims), [{n: all_gather_dim(t, dims[n], dg) if n in dims
+                         else t for n, t in m.items()} for m in moments]
+
+
+@torch.no_grad()
+def reshard(model, held, moments=()):
+    """The inverse of :func:`unshard`: this rank's piece of each of those
+    leaves kept, the data group bound again; returns ``moments`` cut
+    alike into new dicts."""
+    from . import tensor_parallel as tpar
+    dg, dims = held
+
+    def piece(t, d):
+        return t.chunk(dg.size, dim=d)[dg.rank].contiguous().clone()
+    for name, p in list(model.named_parameters()):
+        if name in dims:
+            tpar._replace(model, name, piece(p.detach(), dims[name]),
+                          p.requires_grad)
+    tpar._bind(model, model.mg, model.layouts, dg, dims)
+    return [{n: piece(t, dims[n]) if n in dims else t for n, t in m.items()}
+            for m in moments]
 
 
 # ---- rows ----------------------------------------------------------------------

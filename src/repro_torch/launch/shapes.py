@@ -38,16 +38,24 @@ SHAPES: Dict[str, ShapeCase] = {
 }
 
 
+def case_of(shape: Union[str, ShapeCase]) -> ShapeCase:
+    """A shape's case: by its name in :data:`SHAPES`, or a
+    :class:`ShapeCase` of another size as it is (the tests' small
+    cells)."""
+    return shape if isinstance(shape, ShapeCase) else SHAPES[shape]
+
+
 def cell_enabled(cfg, shape: str) -> bool:
     if shape == "long_500k" and not cfg.sub_quadratic:
         return False           # pure full attention: documented skip
     return True
 
 
-def input_specs(cfg, shape: str) -> Dict[str, torch.Tensor]:
+def input_specs(cfg, shape: Union[str, ShapeCase]
+                ) -> Dict[str, torch.Tensor]:
     """The global batch of ``shape`` for ``cfg`` (token/frame/image
     stand-ins) as tensors of the reference's shapes and dtypes."""
-    sc = SHAPES[shape]
+    sc = case_of(shape)
     b, s = sc.global_batch, sc.seq
 
     def sd(shp, dtype):
@@ -76,13 +84,13 @@ def _axes(mesh) -> Mapping[str, int]:
     return dict(mesh)
 
 
-def default_accum(cfg, shape: str,
+def default_accum(cfg, shape: Union[str, ShapeCase],
                   mesh: Union[Mapping[str, int], object]) -> int:
     """Gradient-accumulation heuristic: keep the per-device microbatch's
     layer-boundary residuals under ~2 GB.  ``mesh``: a ``DeviceMesh`` or
     a dict of axis sizes (``{"data": 16, "model": 16}``)."""
     from ..distributed.sharding import _axsize, batch_axes
-    sc = SHAPES[shape]
+    sc = case_of(shape)
     if sc.kind != "train":
         return 1
     axes = _axes(mesh)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import struct
 from typing import Dict, Optional
 
 import torch
@@ -164,8 +165,12 @@ def kv_for_heads(p, k: torch.Tensor, v: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def _sqrt_bf16(hd: int) -> float:
-    """``sqrt(hd)`` rounded to bf16, as the reference divides by it."""
-    return float(torch.tensor(math.sqrt(hd), dtype=F32).to(BF16))
+    """``sqrt(hd)`` rounded to f32 and then to bf16 (to nearest, ties to
+    even), as the reference divides by it; from the float's bits, with no
+    tensor a fake mode (the dry run's) could intercept."""
+    bits = struct.unpack("<I", struct.pack("<f", math.sqrt(hd)))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

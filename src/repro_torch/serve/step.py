@@ -40,10 +40,17 @@ def _check_tp(model, cfg, tp: int) -> None:
                          f"pads to {cfg.padded_heads(tp)}")
 
 
-def _rows(mesh, batch, key):
-    """``(data group or None, this rank's rows of the global batch)``
-    over the data axes (``sharding.batch_axes``) of ``mesh``."""
+def _data_group(mesh):
+    """``mesh``'s data group (None without a mesh), made when the step is:
+    it builds a flattened mesh, which a fake mode cannot."""
     from ..distributed import fsdp
+    return None if mesh is None else fsdp.data_group(mesh)
+
+
+def _rows(mesh, dg, batch, key):
+    """``(data group or None, this rank's rows of the global batch)``
+    over the data axes (``sharding.batch_axes``) of ``mesh``, whose data
+    group is ``dg``."""
     from ..distributed.sharding import batch_axes, dp_axes, mesh_axes
     if mesh is None:
         return None, batch
@@ -56,7 +63,6 @@ def _rows(mesh, batch, key):
     if n_b != math.prod(axes[a] for a in dp_axes(axes) if a in axes):
         raise NotImplementedError(f"a batch of {b} splits over {ba} alone, "
                                   f"not every data axis")
-    dg = fsdp.data_group(mesh)
     n = b // n_b
     return dg, {k: v[dg.rank * n:(dg.rank + 1) * n] for k, v in batch.items()}
 
@@ -67,11 +73,13 @@ def _whole_rows(t: torch.Tensor, dg) -> torch.Tensor:
 
 
 def make_prefill_step(cfg, max_seq: int, *, tp: int = 1, mesh=None):
+    group = _data_group(mesh)
+
     @torch.inference_mode()
     def prefill_step(model, batch):
         from ..distributed import fsdp
         _check_tp(model, cfg, tp)
-        dg, mine = _rows(mesh, batch, next(iter(batch)))
+        dg, mine = _rows(mesh, group, batch, next(iter(batch)))
         with fsdp.rows_over(model, dg):
             logits, caches = forward_prefill(model, mine, cfg, max_seq)
         return _whole_rows(logits, dg), caches
@@ -82,11 +90,13 @@ def make_decode_step(cfg, max_seq: int, *, tp: int = 1, greedy: bool = True,
                      mesh=None):
     """``greedy`` is the reference's flag, kept for its signature alone:
     both of its branches take the argmax, and so does this step."""
+    group = _data_group(mesh)
+
     @torch.inference_mode()
     def decode_step(model, caches, batch):
         from ..distributed import fsdp
         _check_tp(model, cfg, tp)
-        dg, mine = _rows(mesh, batch, "token")
+        dg, mine = _rows(mesh, group, batch, "token")
         with fsdp.rows_over(model, dg):
             logits, caches = forward_decode(model, mine, caches, cfg,
                                             max_seq)

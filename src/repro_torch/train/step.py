@@ -57,6 +57,7 @@ import torch.distributed as dist
 
 from ..distributed.collectives import (all_gather_flat, axis_group,
                                        mesh_device, reduce_scatter)
+from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpar
 from ..distributed.compression import compress_with_feedback, int8_allreduce_
 from ..distributed.sharding import dp_axes, mesh_axes, whole_shape
@@ -270,8 +271,13 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
     the rank's rows of dim 0 are its shard (the first axis major).  The
     parameters stay replicated, bitwise equal on every rank.  With
     ``zero1`` (one data axis) the state's moments are those of
-    :func:`make_zero1_local_state`.  ``metrics``: the loss averaged over
-    the ranks, the gradient norm before the clip, the learning rate."""
+    :func:`make_zero1_local_state`.  On a model that ``shard_model(...,
+    fsdp=True)`` sharded, the step gathers the parameters' pieces whole
+    over the data group at entry (and the moments', but ZeRO-1's), runs
+    as on an unsharded model and keeps the pieces of the new state: the
+    reference's ``shard_map`` takes them whole (``in_specs`` ``P()``).
+    ``metrics``: the loss averaged over the ranks, the gradient norm
+    before the clip, the learning rate."""
     axes = mesh_axes(mesh)
     mg = tpar.model_group(mesh)
     manual = tuple(a for a in batch_axes if a in axes)
@@ -365,7 +371,7 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
             del gathered, pshard, mine
         return gnorm, lr
 
-    def train_step(state: TrainState, batch):
+    def local_step(state: TrainState, batch):
         model = state.params
         dev = state.step.device
         have = getattr(model, "mg", None)
@@ -402,6 +408,21 @@ def make_local_accum_train_step(cfg, oc: OptimizerConfig, mesh, *,
         model.zero_grad(set_to_none=True)
         new_state = TrainState(state.step + 1, model, mu, nu, state.error)
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    def train_step(state: TrainState, batch):
+        model = state.params
+        if getattr(model, "dg", None) is None:
+            return local_step(state, batch)
+        # FSDP: the reference's shard_map takes the parameters (and, but
+        # for ZeRO-1's own layout, the moments) whole over the data axes
+        held, moments = fsdp.unshard(model, () if zero1 else
+                                     (state.mu, state.nu))
+        mu, nu = (state.mu, state.nu) if zero1 else moments
+        new, metrics = local_step(
+            TrainState(state.step, model, mu, nu, state.error), batch)
+        cut = fsdp.reshard(model, held, () if zero1 else (new.mu, new.nu))
+        mu, nu = (new.mu, new.nu) if zero1 else cut
+        return TrainState(new.step, model, mu, nu, new.error), metrics
 
     return train_step
 
@@ -443,7 +464,8 @@ def make_zero1_local_state(model, n_dp: int, tp: int = 1, *,
     and a rank holds its block alone; without, whole tensors on the
     model's device.  A sharded model's leaves count whole."""
     dev = next(model.parameters()).device
-    tp_model = model if getattr(model, "mg", None) is not None else None
+    tp_model = model if (getattr(model, "mg", None) is not None or
+                         getattr(model, "dg", None) is not None) else None
     if mesh is not None:
         from torch.distributed.tensor import DTensor, Replicate, Shard
         axes = mesh_axes(mesh)
@@ -545,7 +567,6 @@ def _mesh_train_step(cfg, oc: OptimizerConfig, mesh, *,
 
     ``metrics``: the loss averaged over the data ranks, the gradient norm
     before the clip, the learning rate."""
-    from ..distributed import fsdp
     from ..distributed.sharding import batch_axes
     axes = mesh_axes(mesh)
     mg = tpar.model_group(mesh)
@@ -624,7 +645,8 @@ def _mesh_train_step(cfg, oc: OptimizerConfig, mesh, *,
         for name, p in model.named_parameters():
             g = grads.pop(name)
             m, v = mu[name], nu[name]
-            z = _moment_dim(m, mesh, dd.get(name))
+            z = _moment_dim(m, mesh, dd.get(name)) if dg is not None \
+                else None
             layout = lay.get(name)
             halves = (layout is not None and layout[0] == "halves"
                       and hasattr(m, "to_local"))

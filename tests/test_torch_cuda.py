@@ -1172,3 +1172,92 @@ def test_bf16_adamw_sequence_on_the_card_matches_the_cpu(cuda_device,
         assert card[n][1].dtype == card[n][2].dtype == torch.float32
         for a, b in zip(card[n], cpu[n]):
             assert torch.equal(a, b), n
+
+
+# ---- the launch tooling, the local step at fsdp=True, the examples ---------------
+
+def test_examples_on_the_card(cuda_device, tmp_path, capsys):
+    """Each example twin with ``device="cuda"``: quickstart's CSR against
+    the host oracle, serve_lm's 12 requests, three train_lm steps, the
+    sharded load in an NCCL world of one."""
+    from repro_torch.examples import (distributed_load, quickstart, serve_lm,
+                                      train_lm)
+    got = quickstart.run("cuda", str(tmp_path))
+    edges = np.loadtxt(got["path"], dtype=np.int64) - 1
+    offsets, targets, _ = _oracle(edges[:, 0], edges[:, 1], None, got["v"])
+    assert np.array_equal(got["csr"].offsets, offsets)
+    assert np.array_equal(got["csr"].targets, targets)
+    assert serve_lm.main(["--device", "cuda"]) == 0
+    assert "served 12 requests / 288 tokens" in capsys.readouterr().out
+    hist = train_lm.run(train_lm.parse(["--device", "cuda", "--steps", "3"]))
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    row = distributed_load.rank_main("nccl", "cuda")
+    assert row["world"] == 1 and int(row["csr"].offsets[-1]) == 8 << 12
+
+
+def test_dry_run_of_a_reduced_cell_on_fake_cuda_tensors(cuda_device):
+    """The reduced mixtral's GSPMD step at ``fsdp=True`` on fake ``cuda``
+    tensors in a fake ``(2, 2)`` world standing for NCCL: its FLOPs and
+    collectives counted (NCCL's reduce-scatter where gloo's route takes
+    an all-to-all), the fake world gone after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.shapes import ShapeCase
+    with fake_world(4, like="nccl"):
+        mesh = init_device_mesh("cuda", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        got = dryrun.measure_cell(reduced_config("mixtral-8x22b"),
+                                  ShapeCase("small", 16, 8, "train"), mesh,
+                                  device="cuda", fsdp=True, accum=2)
+    assert not dist.is_initialized()
+    assert got["flops_per_device"] > 0
+    calls = got["collective_calls_per_device"]
+    assert calls["all-gather"] > 0 and calls["reduce-scatter"] > 0, calls
+    assert "all-to-all" not in calls
+    assert got["memory"]["argument_gb"] > 0
+
+
+def test_local_step_at_fsdp_in_an_nccl_world_of_one(cuda_device, tmp_path):
+    """The local-accumulation step at ``fsdp=True`` on a ``(1, 1)`` mesh
+    (a data group of one: nothing to gather) equals the step at
+    ``fsdp=False`` bitwise, two steps."""
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_local_accum_train_step
+    cfg = reduced_config("phi4-mini-3.8b")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=0, decay_steps=50)
+    batch = synthetic_batch(cfg, 8, 32, 0, device=cuda_device)
+    base = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/world",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        runs = []
+        for fsdp in (True, False):
+            model = tpar.shard_model(copy.deepcopy(base), cfg, mesh,
+                                     fsdp=fsdp)
+            state = init_state(model)
+            step = make_local_accum_train_step(cfg, oc, mesh, accum_steps=2)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            runs.append((losses, state))
+        (l1, s1), (l0, s0) = runs
+        assert l1 == l0 and all(np.isfinite(l1))
+        for a, b in zip(s1.params.parameters(), s0.params.parameters()):
+            assert a.is_cuda and torch.equal(a, b)
+        for name in s0.mu:
+            assert torch.equal(s1.mu[name], s0.mu[name])
+            assert torch.equal(s1.nu[name], s0.nu[name])
+    finally:
+        dist.destroy_process_group()

@@ -39,6 +39,8 @@ OC = dict(lr=1e-3, warmup_steps=0, decay_steps=50)
 ACCUM, STEPS = 2, 2
 SERVE_BATCH, SERVE_SEQ, MAX_SEQ, DECODE_STEPS = 2, 8, 16, 3
 CKPT_ARCH = "mixtral-8x22b"
+LOCAL_OC = dict(lr=1e-3, warmup_steps=1, decay_steps=50)
+LOCAL_STEPS = 2
 
 
 def nested(flat):
@@ -341,8 +343,95 @@ def case_card(ctx):
     return out
 
 
+def _local_run(ctx, arch, mode, fsdp, dtype):
+    """``LOCAL_STEPS`` local-accumulation steps of ``mode`` from the
+    reference's weights on a model ``shard_model(..., fsdp=fsdp)``
+    sharded: ``(model, state, metrics of each step, whole state after the
+    first step)``."""
+    from repro_torch.distributed.sharding import dp_axes, mesh_axes
+    from repro_torch.train.state import cast_model
+    from repro_torch.train.step import (make_local_accum_train_step,
+                                        make_zero1_local_state)
+    cfg, model = sharded(ctx, arch)
+    if dtype is not None:
+        cast_model(model, dtype)
+    mesh = ctx["mesh"]
+    tpar.shard_model(model, cfg, mesh, fsdp=fsdp)
+    zero1 = mode == "local_zero1"
+    axes = mesh_axes(mesh)
+    state = make_zero1_local_state(model, axes["data"], ctx["tp"],
+                                   mesh=mesh) if zero1 else init_state(model)
+    step = make_local_accum_train_step(
+        cfg, OptimizerConfig(**LOCAL_OC), mesh, accum_steps=ACCUM,
+        int8_allreduce=mode.endswith("int8"), zero1=zero1,
+        batch_axes=("data",) if zero1 else dp_axes(axes))
+    batch = batch_of(ctx["inputs"], arch)
+    metrics, first = [], {}
+    for i in range(LOCAL_STEPS):
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            whole_out(model, dict(model.named_parameters()), "p.", first)
+            for tag, tree in (("mu", state.mu), ("nu", state.nu)):
+                if zero1:
+                    first.update({f"{tag}.{k}": f32(v)
+                                  for k, v in tree.items()})
+                else:
+                    whole_out(model, tree, f"{tag}.", first)
+    return model, state, metrics, first
+
+
+def case_local(ctx):
+    """The local-accumulation step of each mode of ``local_modes`` at
+    ``fsdp=True`` (f32, and the bf16 state of ``BF16_STATE_ARCHS`` in
+    ``local_accum``) beside the same step at ``fsdp=False`` from the same
+    weights: each step's loss and gradient norm, the whole state after
+    the first step (``fsdp=True``), whether the pieces of the
+    ``fsdp=True`` run's parameters and moments after the last step are
+    bitwise those ``shard_model`` keeps of the ``fsdp=False`` run's, and
+    the elements of both runs' parameters on this rank."""
+    from repro_torch.distributed import fsdp
+    out = {}
+    dg = fsdp.data_group(ctx["mesh"])
+    for arch in base_archs(ctx):
+        for mode in ctx["spec"]["local_modes"]:
+            dtypes = [None]
+            if mode == "local_accum" and arch in configs.BF16_STATE_ARCHS:
+                dtypes.append(BF16)
+            for dtype in dtypes:
+                key = f"{arch}.{mode}.{'bf16' if dtype else 'f32'}"
+                m1, s1, met1, first = _local_run(ctx, arch, mode, True,
+                                                 dtype)
+                m0, s0, met0, _ = _local_run(ctx, arch, mode, False, dtype)
+                out.update({f"{key}.first.{k}": v for k, v in first.items()})
+                out[f"{key}.metrics"] = np.array(met1)
+                out[f"{key}.metrics_whole"] = np.array(met0)
+                dims = m1.data_dims
+                assert dims, "fsdp=True split no leaf over the data axes"
+
+                def cut(name, t):
+                    d = dims.get(name)
+                    return t if d is None else t.chunk(dg.size, d)[dg.rank]
+                same = []
+                for (name, p1), p0 in zip(m1.named_parameters(),
+                                          m0.parameters()):
+                    same.append(torch.equal(p1, cut(name, p0)))
+                for t1, t0 in ((s1.mu, s0.mu), (s1.nu, s0.nu)):
+                    for name, v in t1.items():
+                        w = t0[name]
+                        same.append(torch.equal(local(v), local(w))
+                                    if mode == "local_zero1"
+                                    else torch.equal(v, cut(name, w)))
+                out[f"{key}.bitwise"] = np.array(all(same))
+                out[f"{key}.numel"] = np.array(
+                    [sum(p.numel() for p in m.parameters())
+                     for m in (m1, m0)])
+    return out
+
+
 CASES = {"steps": case_steps, "saved": case_saved, "serve": case_serve,
-         "ckpt": case_ckpt, "launch": case_launch, "card": case_card}
+         "ckpt": case_ckpt, "launch": case_launch, "card": case_card,
+         "local": case_local}
 
 
 def main(spec_path, out_dir):
