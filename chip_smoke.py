@@ -271,6 +271,25 @@ Phases (any failure exits non-zero):
     ``(N, 1)`` over NCCL, one rank a card, 2 local steps at ``fsdp=True``
     (the losses equal on every rank), against a fake ``(N, 1)`` world that
     stands for NCCL;
+3m. (run last, after 3l) the paper's comparisons on the card's machine,
+    its numbers under ``host_engines`` in the JSON, on an RMAT scale-20
+    text file (3c's): GVEL on the card (``open_graph(p).csr()``, the second
+    load timed, the loader's launches counted from 0); GVEL on the host,
+    the ``threads`` engine at 1, 2, 4, ... workers up to the cores
+    ``os.sched_getaffinity(0)`` gives (at most 32), for the edge list and
+    for ``csr()``, and ``csr_staged_np`` at the same counts; the ``numpy``
+    engine and its host build; PIGO (``read_edgelist_pigo`` +
+    ``csr_pigo``); ``read_edgelist_loadtxt``; the Hornet / Gunrock analogue
+    (``read_edgelist_naive`` + ``csr_pigo``) on a scale-18 file only (cut:
+    its Python loop over the scale-20 file's 16.7 M lines would take the
+    phase's budget; it is compared by edges/s); then the ``threads``
+    engine's edge list loaded onto the card and built there by
+    ``convert_to_csr`` (the histogram and the scan must launch), equal to
+    the host build.  Every product bitwise against the numpy oracle; host
+    work timed with ``device="cpu"``, one run each.  Prints seconds and
+    edges/s by loader, the card path's speedup over each, the ratio for
+    each doubling of threads, and the host's CPU model and cores beside
+    the card's ``nvidia-smi`` line;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -4524,6 +4543,219 @@ def launch_across_cards(torch, cards):
     return {"world_s": wall, "ranks": rows, "fake": fake}
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: the paper's comparisons -- GVEL's host engines and baselines
+# ---------------------------------------------------------------------------
+
+HOST_SCALE, NAIVE_SCALE = 20, 18   # phase 3m's file; the naive loop's (cut)
+HOST_MAX_WORKERS = 32
+
+
+CPUINFO_KEYS = ("model name", "vendor_id", "cpu family", "model", "stepping",
+                "cpu MHz", "cache size")
+
+
+def host_machine() -> dict:
+    """The host's CPU model (the first processor's ``/proc/cpuinfo`` fields
+    that name it: a virtual machine may say "unknown" for the model name)
+    and the cores this process may run on."""
+    cpu = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            if key.strip() in CPUINFO_KEYS:
+                cpu[key.strip()] = value.strip()
+    return {"cpu": cpu, "cores": len(os.sched_getaffinity(0)),
+            "cpu_count": os.cpu_count()}
+
+
+def smi_line():
+    """``nvidia-smi --query-gpu=name,power.limit``'s first line, or None."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    return out[0] if out else None
+
+
+def wall_s(fn):
+    """``(fn(), seconds)`` on the host's clock (host work, no card)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def check_el(el, src, dst, v, what):
+    """A CPU edge list bitwise against the file's generated edges."""
+    require(el.src.device.type == "cpu" and int(el.num_edges) == len(src)
+            and int(el.num_vertices) == v
+            and np.array_equal(el.src.numpy(), src)
+            and np.array_equal(el.dst.numpy(), dst),
+            f"{what}: the edge list equals the oracle's edges")
+
+
+def phase_host_engines(torch, repro_torch, kernels, report):
+    """Phase 3m: the paper's comparisons on the card's machine.  On an RMAT
+    scale-20 text file (16,777,216 edges, Graph500's parameters, phase 3c's
+    file): GVEL on the card (``open_graph(p).csr()``, the second load
+    timed, its launches counted); GVEL on the host, the ``threads`` engine
+    at 1, 2, 4, ... workers up to this process's cores (at most
+    ``HOST_MAX_WORKERS``), for the edge list alone and for ``csr()``, and
+    ``csr_staged_np`` (rho = max(4, workers)) at the same counts; the
+    ``numpy`` engine and its host build; PIGO (``read_edgelist_pigo`` then
+    ``csr_pigo``); ``read_edgelist_loadtxt``; and the Hornet / Gunrock
+    analogue (``read_edgelist_naive`` then ``csr_pigo``) at scale 18 only
+    (cut: its Python loop over 16.7 M lines would take the phase's whole
+    budget; it is compared by edges/s).  Then one edge list, both builds:
+    the ``threads`` engine's edge list loaded onto the card, built there
+    by ``convert_to_csr`` (the histogram and the scan must launch), equal
+    to the host build.  Every product is held bitwise against the numpy
+    oracle of its file.  Host work is timed with ``device="cpu"`` on the
+    host's clock, one run each (files in the page cache).  Returns the
+    loader's launch counts per path."""
+    from repro_torch.core import baselines, build, convert_to_csr
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cpu = {"device": "cpu"}
+    p20, s20, d20, _ = make_graph("rmat20.el", HOST_SCALE, False, False,
+                                  SEED + 30)
+    p18, s18, d18, _ = make_graph("rmat18n.el", NAIVE_SCALE, False, False,
+                                  SEED + 50)
+    v20 = int(max(s20.max(), d20.max())) + 1
+    v18 = int(max(s18.max(), d18.max())) + 1
+    oracle20 = csr_oracle(s20, d20, None, v20)
+    oracle18 = csr_oracle(s18, d18, None, v18)
+    machine = host_machine()
+    counts = [1 << k for k in range(6)
+              if 1 << k <= min(machine["cores"], HOST_MAX_WORKERS)]
+    loaders = {}
+    launches = {}
+
+    def keep(name, seconds, edges, what):
+        loaders[name] = {"what": what, "seconds": seconds, "edges": edges,
+                         "edges_per_s": edges / seconds}
+
+    # GVEL on the card: the second load of the file is timed
+    for turn in (1, 2):
+        csr, sec, lc = counted(torch, kernels,
+                               lambda: repro_torch.open_graph(p20).csr())
+        need(lc, LOAD_KERNELS, f"3m card load {turn}")
+        check_csr(csr, oracle20, False, f"3m card load {turn}")
+        del csr
+    launches["host engines: card load"] = lc
+    keep("gvel_card_csr", sec, len(s20),
+         "open_graph(p).csr() on the card, second load")
+
+    # GVEL on the host: the threads engine and csr_staged_np by workers
+    host = None
+    for w in counts:
+        el, sec = wall_s(lambda: repro_torch.load_edgelist(
+            p20, engine="threads", num_workers=w, **cpu))
+        check_el(el, s20, d20, v20, f"threads w={w}")
+        keep(f"threads_w{w}_edgelist", sec, len(s20),
+             f"load_edgelist(engine='threads', num_workers={w})")
+        host, sec = wall_s(lambda: repro_torch.open_graph(
+            p20, engine="threads", num_workers=w, **cpu).csr())
+        check_csr(host, oracle20, False, f"threads w={w} csr")
+        keep(f"threads_w{w}_csr", sec, len(s20),
+             f"open_graph(engine='threads', num_workers={w}).csr()")
+        src, dst = el.src.numpy(), el.dst.numpy()
+        c, sec = wall_s(lambda: build.csr_staged_np(
+            src, dst, None, v20, rho=max(4, w), num_workers=w))
+        check_csr(c, oracle20, False, f"csr_staged_np w={w}")
+        keep(f"csr_staged_np_w{w}", sec, len(s20),
+             f"csr_staged_np(rho={max(4, w)}, num_workers={w}) of the "
+             f"edge list")
+        del el, c, src, dst
+
+    # the numpy engine, then its host build
+    el, t_el = wall_s(lambda: repro_torch.load_edgelist(p20, engine="numpy",
+                                                        **cpu))
+    check_el(el, s20, d20, v20, "numpy engine")
+    c, t_build = wall_s(lambda: convert_to_csr(el, engine="numpy"))
+    check_csr(c, oracle20, False, "numpy engine + convert_to_csr(numpy)")
+    keep("numpy_edgelist", t_el, len(s20), "load_edgelist(engine='numpy')")
+    keep("numpy_csr", t_el + t_build, len(s20),
+         "load_edgelist(engine='numpy') + convert_to_csr(engine='numpy')")
+
+    # PIGO's two passes, then its single-stage CSR
+    el, t_el = wall_s(lambda: baselines.read_edgelist_pigo(p20, **cpu))
+    check_el(el, s20, d20, v20, "PIGO")
+    c, t_build = wall_s(lambda: baselines.csr_pigo(el, **cpu))
+    check_csr(c, oracle20, False, "PIGO + csr_pigo")
+    keep("pigo_edgelist", t_el, len(s20), "read_edgelist_pigo (8 parts)")
+    keep("pigo_csr", t_el + t_build, len(s20),
+         "read_edgelist_pigo + csr_pigo")
+
+    el, sec = wall_s(lambda: baselines.read_edgelist_loadtxt(p20, **cpu))
+    check_el(el, s20, d20, v20, "loadtxt")
+    keep("loadtxt_edgelist", sec, len(s20), "read_edgelist_loadtxt")
+
+    # the Hornet / Gunrock analogue, at scale 18
+    el, t_el = wall_s(lambda: baselines.read_edgelist_naive(p18, **cpu))
+    check_el(el, s18, d18, v18, "naive")
+    c, t_build = wall_s(lambda: baselines.csr_pigo(el, **cpu))
+    check_csr(c, oracle18, False, "naive + csr_pigo")
+    keep("naive_edgelist_scale18", t_el, len(s18),
+         "read_edgelist_naive, scale 18")
+    keep("naive_csr_scale18", t_el + t_build, len(s18),
+         "read_edgelist_naive + csr_pigo, scale 18")
+    del el, c
+
+    # one edge list, both builds: the host engine's edges built on the card
+    w = counts[-1]
+    el, t_el = wall_s(lambda: repro_torch.load_edgelist(
+        p20, engine="threads", num_workers=w))
+    require(el.src.is_cuda and el.dst.is_cuda,
+            "3m: the threads engine's edge list is on the card")
+    csr, t_build, lc = counted(torch, kernels, lambda: convert_to_csr(el))
+    need(lc, ("degree_histogram", "exclusive_scan"),
+         "3m card build of the threads edge list")
+    require(torch.equal(csr.offsets.cpu(), host.offsets)
+            and torch.equal(csr.targets.cpu(), host.targets),
+            "3m: the card build equals the host build")
+    check_csr(csr, oracle20, False, "3m card build of the threads edge list")
+    launches["host engines: card build of a threads edge list"] = lc
+    both = {"workers": w, "edgelist_to_card_s": t_el, "card_build_s": t_build,
+            "launches": lc}
+    del el, csr, host
+
+    card_eps = loaders["gvel_card_csr"]["edges_per_s"]
+    speedup = {k: card_eps / r["edges_per_s"] for k, r in loaders.items()
+               if k != "gvel_card_csr"}
+    doubling = {}
+    for kind in ("edgelist", "csr"):
+        doubling[f"threads_{kind}"] = {
+            f"{a}->{b}": loaders[f"threads_w{a}_{kind}"]["seconds"]
+            / loaders[f"threads_w{b}_{kind}"]["seconds"]
+            for a, b in zip(counts, counts[1:])}
+    doubling["csr_staged_np"] = {
+        f"{a}->{b}": loaders[f"csr_staged_np_w{a}"]["seconds"]
+        / loaders[f"csr_staged_np_w{b}"]["seconds"]
+        for a, b in zip(counts, counts[1:])}
+    row = {"file": {"scale": HOST_SCALE, "edges": len(s20),
+                    "bytes": os.path.getsize(p20)},
+           "naive_file": {"scale": NAIVE_SCALE, "edges": len(s18),
+                          "bytes": os.path.getsize(p18)},
+           "workers": counts,
+           "loaders": loaders, "card_speedup": speedup,
+           "thread_doubling": doubling, "both_builds": both,
+           "host": machine, "card": smi_line()}
+    report["host_engines"] = row
+    say(json.dumps({"host_engines": {k: {"seconds": r["seconds"],
+                                         "edges_per_s": r["edges_per_s"]}
+                                     for k, r in loaders.items()}}))
+    say(json.dumps({"card_speedup_by_edges_per_s": speedup}))
+    say(json.dumps({"thread_doubling": doubling, "workers": counts}))
+    say(json.dumps({"both_builds": both}))
+    say(json.dumps({"host": machine, "card": row["card"]}))
+    row["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 3m: the host engines and the paper's baselines agree with "
+        f"the oracle bitwise ({row['phase_s']:.1f}s)")
+    return launches
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -5094,6 +5326,7 @@ def main() -> int:
     by_path.update(phase_tp(torch, kernels, p22, report))
     by_path.update(phase_fsdp(torch, kernels, p22, report))
     by_path.update(phase_launch(torch, kernels, report))
+    by_path.update(phase_host_engines(torch, repro_torch, kernels, report))
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -5106,10 +5339,7 @@ def main() -> int:
     say(json.dumps({"trace_losses": report["trace_losses"]}))
     report["seconds"] = time.perf_counter() - t_start
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    report["nvidia_smi"] = smi[0] if smi else None
+    report["nvidia_smi"] = smi_line()
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

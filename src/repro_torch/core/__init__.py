@@ -20,6 +20,11 @@ Public API:
     tune                                 -- measured block geometry
                                             (open_graph(tune=True))
     convert_to_csr, symmetrize           -- in-memory EdgeList transforms
+    read_edgelist, read_edgelist_numpy   -- the streaming engine's wrapper
+                                            and the numpy host engine
+                                            (engines "numpy", "threads")
+    baselines, parse_np                  -- the paper's baseline loaders;
+                                            the host engines' numpy parse
     save_snapshot, read_snapshot,
     Snapshot                             -- the .gvel container
     read_mtx, read_mtx_csr, write_mtx,
@@ -38,7 +43,7 @@ from .loader import (LoaderEngine, LoadOptions, available_engines,
                      get_engine, load_csr, load_edgelist, register_engine)
 from .source import GraphSource, SourceInfo, open_graph, slice_csr
 from .cache import SourceCache, default_cache, query
-from .edgelist import symmetrize
+from .edgelist import read_edgelist, read_edgelist_numpy, symmetrize
 from .csr import convert_to_csr, csr_to_dense, read_csr
 from .mtx import mtx_to_snapshot, read_mtx, read_mtx_csr, write_mtx
 from .snapshot import Snapshot, SnapshotError, read_snapshot, save_snapshot
@@ -50,9 +55,9 @@ from .distributed import (host_shard_and_load, load_csr_sharded,
                           load_csr_sharded_stream)
 from .faults import (CorruptGraphError, FaultPlan, FaultSpec, ShardLoadError,
                      StageTimeout, fault_plan, plan_from_env, set_fault_plan)
-from . import (blocks, build, cache, codecs, csr, degrees, distributed,
-               edgelist, env, faults, generate, indexing, loader, mtx, parse,
-               snapshot, source, tune)
+from . import (baselines, blocks, build, cache, codecs, csr, degrees,
+               distributed, edgelist, env, faults, generate, indexing, loader,
+               mtx, parse, parse_np, snapshot, source, tune)
 
 __all__ = [
     "CSR", "EdgeList", "GraphMeta",
@@ -63,7 +68,7 @@ __all__ = [
     "save_snapshot", "read_snapshot", "Snapshot", "SnapshotError",
     "register_codec", "get_codec", "available_codecs",
     "compress_file_framed", "write_framed",
-    "symmetrize",
+    "read_edgelist", "read_edgelist_numpy", "symmetrize",
     "convert_to_csr", "read_csr", "csr_to_dense",
     "read_mtx", "read_mtx_csr", "write_mtx", "mtx_to_snapshot",
     "make_graph_file", "rmat_edges", "uniform_edges", "grid_edges",
@@ -71,7 +76,7 @@ __all__ = [
     "load_csr_sharded", "load_csr_sharded_stream", "host_shard_and_load",
     "FaultPlan", "FaultSpec", "StageTimeout", "ShardLoadError",
     "CorruptGraphError", "set_fault_plan", "fault_plan", "plan_from_env",
-    "blocks", "build", "cache", "codecs", "csr", "degrees", "distributed",
-    "edgelist", "env", "faults", "generate", "indexing", "loader", "mtx",
-    "parse", "snapshot", "source", "tune",
+    "baselines", "blocks", "build", "cache", "codecs", "csr", "degrees",
+    "distributed", "edgelist", "env", "faults", "generate", "indexing",
+    "loader", "mtx", "parse", "parse_np", "snapshot", "source", "tune",
 ]

@@ -16,6 +16,14 @@ total; sorts, searchsorted and gathers are PyTorch ops, as the reference
 leaves them to XLA.  Padding is ``src == -1``.  Offsets are int32 (the
 device width); ``_check_offsets_width`` refuses edge counts that could
 wrap.
+
+The host builds are the reference's numpy code, copied as it is:
+``csr_staged_np`` (rho partitions on a thread pool of ``num_workers``),
+``csr_binned_np`` (vertex-range bins filled on a thread pool) and the
+oracle ``csr_np``; their offsets are int64.  The first two return CPU
+tensors over their numpy results (the host engines' CSR, moved to its
+device by the caller); ``csr_np`` returns numpy arrays, as the tests'
+oracle.
 """
 from __future__ import annotations
 
@@ -38,8 +46,9 @@ def _check_offsets_width(num_edges: int) -> None:
         raise ValueError(
             f"edge count {num_edges} exceeds int32 offsets "
             f"(limit {INT32_OFFSETS_LIMIT}); the device builds accumulate "
-            "offsets in int32 -- build on host (csr_np) for graphs this "
-            "large")
+            "offsets in int32 -- build on the host for graphs this large: "
+            "engine='numpy' or 'threads', or convert_to_csr(el, "
+            "engine='numpy') (int64 offsets)")
 
 
 def _ceil_log2(n: int) -> int:
@@ -208,6 +217,139 @@ def build_csr(src: torch.Tensor, dst: torch.Tensor,
         return csr_binned(src, dst, weights, num_vertices, bin_bits=bin_bits,
                           weighted=weighted)
     raise ValueError(f"unknown method {method!r}")
+
+
+def host_csr(offsets: np.ndarray, targets: np.ndarray,
+              weights: Optional[np.ndarray], num_vertices: int) -> CSR:
+    """A host build's arrays as a CSR of CPU tensors (no copy)."""
+    return CSR(torch.from_numpy(offsets), torch.from_numpy(targets),
+               None if weights is None else torch.from_numpy(weights),
+               num_vertices)
+
+
+def csr_binned_np(src: np.ndarray, dst: np.ndarray,
+                  weights: Optional[np.ndarray], num_vertices: int, *,
+                  bin_bits: Optional[int] = None,
+                  num_workers: int = 1) -> CSR:
+    """Host binned build: bucket edges by contiguous vertex range, then
+    fill each bin independently (cache-sized subproblems; threads across
+    bins -- numpy's sort releases the GIL).
+
+    Bucketing is the cumulative-count rank, one pass per bin (B small):
+    dest = bin_start[bin] + arrival rank within bin.  The per-bin fill
+    value-sorts (local_id << 32) | within_bin_position packed into int64 --
+    unique keys, so the plain value sort is the stable rank, and targets /
+    weights land by gather through disjoint per-bin destinations."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    v = num_vertices
+    m = src >= 0
+    src = np.ascontiguousarray(src[m], np.int64)
+    dst = dst[m]
+    weights = weights[m] if weights is not None else None
+    e = len(src)
+    v_bits = _ceil_log2(v)
+    if bin_bits is None:
+        bin_bits = max(v_bits - 4, 1)        # ~16 bins by default
+    bin_bits = max(bin_bits, 1)
+    nbins = max((v + (1 << bin_bits) - 1) >> bin_bits, 1)
+
+    deg = np.bincount(src, minlength=v)
+    offsets = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    targets = np.empty(e, np.int32)
+    wout = np.empty(e, weights.dtype) if weights is not None else None
+    if e == 0:
+        return host_csr(offsets, targets, wout, v)
+
+    # ---- bucket: cumulative-count rank into bins (one cumsum per bin) ----
+    bins = src >> bin_bits
+    bcount = np.bincount(bins, minlength=nbins)
+    bstart = np.zeros(nbins + 1, np.int64)
+    np.cumsum(bcount, out=bstart[1:])
+    dest1 = np.empty(e, np.int64)
+    for b in range(nbins):
+        hit = bins == b
+        dest1[hit] = bstart[b] + np.arange(int(bcount[b]))
+    perm1 = np.empty(e, np.int64)
+    perm1[dest1] = np.arange(e)
+
+    # ---- per-bin contention-free fills (threadable, cache-sized) --------
+    def fill(b):
+        lo, hi = int(bstart[b]), int(bstart[b + 1])
+        if lo == hi:
+            return
+        edges = perm1[lo:hi]
+        local = src[edges] & ((1 << bin_bits) - 1)
+        packed = (local << 32) | np.arange(hi - lo)
+        order = np.sort(packed) & 0xFFFFFFFF
+        csr_order = edges[order]
+        targets[lo:hi] = dst[csr_order]
+        if wout is not None:
+            wout[lo:hi] = weights[csr_order]
+
+    if num_workers == 1 or nbins == 1:
+        for b in range(nbins):
+            fill(b)
+    else:
+        with ThreadPoolExecutor(num_workers) as pool:
+            list(pool.map(fill, range(nbins)))
+    return host_csr(offsets, targets, wout, v)
+
+
+def csr_staged_np(src: np.ndarray, dst: np.ndarray,
+                  weights: Optional[np.ndarray], num_vertices: int, *,
+                  rho: int = 4, num_workers: int = 1) -> CSR:
+    """Host (numpy) staged build with a thread pool over partitions --
+    the multicore realization of Algorithm 2: partition-local sorts run
+    on separate cores (numpy sort releases the GIL), then the disjoint
+    merge scatters in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    v = num_vertices
+    e = len(src)
+    cuts = np.linspace(0, e, rho + 1).astype(np.int64)
+
+    def local(p):
+        s = src[cuts[p]:cuts[p + 1]]
+        d = dst[cuts[p]:cuts[p + 1]]
+        order = np.argsort(s, kind="stable")
+        skey = s[order]
+        deg = np.bincount(skey, minlength=v)
+        w = weights[cuts[p]:cuts[p + 1]][order] if weights is not None else None
+        return skey, d[order], deg, w
+
+    if num_workers == 1:
+        parts = [local(p) for p in range(rho)]
+    else:
+        with ThreadPoolExecutor(num_workers) as pool:
+            parts = list(pool.map(local, range(rho)))
+
+    pdeg = np.stack([p[2] for p in parts])                 # (rho, V)
+    deg = pdeg.sum(axis=0)
+    offsets = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    before = np.cumsum(pdeg, axis=0) - pdeg                # (rho, V) excl
+    targets = np.empty(e, np.int32)
+    wout = np.empty(e, np.float32) if weights is not None else None
+
+    def merge(p):
+        skey, sdst, pdg, w = parts[p]
+        local_off = np.zeros(v + 1, np.int64)
+        np.cumsum(pdg, out=local_off[1:])
+        rank = np.arange(len(skey)) - local_off[skey]
+        dest = offsets[skey] + before[p][skey] + rank
+        targets[dest] = sdst
+        if wout is not None:
+            wout[dest] = w
+
+    if num_workers == 1:
+        for p in range(rho):
+            merge(p)
+    else:
+        with ThreadPoolExecutor(num_workers) as pool:
+            list(pool.map(merge, range(rho)))
+    return host_csr(offsets, targets, wout, v)
 
 
 def csr_np(src: np.ndarray, dst: np.ndarray, weights: Optional[np.ndarray],

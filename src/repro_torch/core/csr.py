@@ -4,9 +4,10 @@ The port of ``repro/core/csr.py::convert_to_csr``: the strategy ladder of
 the paper's Figures 3-4 (``global`` / ``staged`` with rho partitions /
 ``binned``) over an EdgeList that is already in memory, as MTX files,
 ``symmetric=True`` loads and ``save`` produce it.  On a CUDA edge list the
-build counts degrees with the ``degree_histogram`` kernel and scans them
-with ``exclusive_scan``.  :func:`read_csr` and :func:`csr_to_dense` are the
-reference's small wrappers.
+device build counts degrees with the ``degree_histogram`` kernel and scans
+them with ``exclusive_scan``; ``engine="numpy"`` builds on the host instead
+(the host engines' build, as in the reference).  :func:`read_csr` and
+:func:`csr_to_dense` are the reference's small wrappers.
 """
 from __future__ import annotations
 
@@ -16,19 +17,38 @@ import numpy as np
 import torch
 
 from . import build
-from .types import CSR, EdgeList
+from .types import CSR, EdgeList, _np
 
 
 def convert_to_csr(el: EdgeList, *, method: str = "staged", rho: int = 4,
-                   bin_bits: Optional[int] = None) -> CSR:
-    """Convert an EdgeList to a CSR on the same device, int64 offsets,
-    through the device builds (:func:`build.build_csr`)."""
+                   bin_bits: Optional[int] = None,
+                   engine: str = "device") -> CSR:
+    """Convert an EdgeList to a CSR on the same device, int64 offsets.
+
+    ``engine="device"`` (or the reference's name, ``"jax"``) runs the
+    device builds (:func:`build.build_csr`); ``engine="numpy"`` builds on
+    the host as the reference's numpy engine does -- ``csr_binned_np`` for
+    ``method="binned"``, else the stable-sort ``csr_np`` -- and moves the
+    CSR to the edge list's device."""
     method = method or "staged"
+    if method not in ("global", "staged", "binned"):
+        raise ValueError(f"unknown method {method!r}")
     n = int(el.num_edges)
     v = int(el.num_vertices)
     weighted = el.weights is not None
     src, dst = el.src[:n], el.dst[:n]
     w = el.weights[:n] if weighted else None
+    if engine == "numpy":
+        s, d, ww = _np(src), _np(dst), _np(w)
+        if method == "binned":
+            csr = build.csr_binned_np(s, d, ww, v, bin_bits=bin_bits)
+        else:
+            o = build.csr_np(s, d, ww, v)
+            csr = build.host_csr(o.offsets, o.targets, o.weights, v)
+        return csr.to(src.device)
+    if engine not in ("device", "jax"):
+        raise ValueError(f"unknown convert_to_csr engine {engine!r}; "
+                         f"expected 'device' (or 'jax') or 'numpy'")
     offsets, targets, ww = build.build_csr(
         src, dst, w, v, method=method, rho=rho, bin_bits=bin_bits,
         weighted=weighted)

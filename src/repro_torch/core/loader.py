@@ -1,9 +1,20 @@
 """Streaming loader on the card: the engine registry and engine calls.
 
-The port of ``repro/core/loader.py``.  Two engines are registered:
-``snapshot`` serves ``.gvel`` files (:mod:`.snapshot`), and ``device``
-streams a text edgelist (raw, gzip or framed) into packed device
-accumulators and hands them to the rank-based CSR builders:
+The port of ``repro/core/loader.py``, with the reference's engine table:
+
+    ==========  ================================================
+    engine      implementation
+    ==========  ================================================
+    device      the streaming pipeline below, on the card
+    pallas      the same engine under the reference's name for its
+                Pallas parse (the card's parse is that kernel's port)
+    numpy       the single-pass vectorized numpy parser (host)
+    threads     the same parse on a thread pool (host)
+    snapshot    ``.gvel`` files (:mod:`.snapshot`)
+    ==========  ================================================
+
+The streaming engine parses a text edgelist (raw, gzip or framed) into
+packed device accumulators and hands them to the rank-based CSR builders:
 
   1. a prefetch thread stages batch i+1's overlap-padded blocks as one
      flat span into a :class:`~repro_torch.core.blocks.StagingArena` ring
@@ -22,6 +33,11 @@ accumulators and hands them to the rank-based CSR builders:
   4. the host syncs once for the edge count and once for the vertex
      count, shrinks the buffers to a power-of-two prefix, and builds the
      CSR on the card (``build.csr_staged`` by default).
+
+The host engines (:mod:`.edgelist`) parse on the CPU and, for ``csr()``,
+build there too (``csr_convert_engine``), as the paper and the reference
+do; the product moves to its device once, at the end.  A host engine runs
+only when the caller names it.
 
 Entry points resolve ``device=None`` to CUDA and raise without one; pass
 ``device="cpu"`` to run the plain PyTorch versions.
@@ -46,6 +62,7 @@ from .types import CSR, EdgeList
 
 DEFAULT_EDGELIST_ENGINE = "device"
 DEFAULT_CSR_ENGINE = "device"
+HOST_ENGINES = ("numpy", "threads")      # parse and build on the host
 
 # GVEL's paper geometry
 DEFAULT_BETA = 256 * 1024
@@ -61,8 +78,10 @@ class LoadOptions:
     means what the file says (snapshot flags, MTX banner; False for text);
     ``device=None`` means CUDA.  ``symmetric=True`` appends every edge's
     reverse (the front door does it once, on the device).  ``engine_kw``
-    carries the streaming geometry (``beta``, ``overlap``,
-    ``batch_blocks``) verbatim.  ``tune=True`` fills the streaming geometry
+    carries an engine's knobs verbatim: the streaming geometry (``beta``,
+    ``overlap``, ``batch_blocks``), ``num_workers`` and
+    ``chunks_per_worker`` for ``threads``, ``chunk_bytes`` and
+    ``num_chunks`` for ``numpy``.  ``tune=True`` fills the streaming geometry
     the caller did not pin from the measured profile of this host and
     device (:mod:`.tune`; the first use sweeps); other engines ignore it.
     ``faults`` pins a :class:`~.faults.FaultPlan` on the handle: every
@@ -159,7 +178,18 @@ def get_engine(name: str):
 
 
 def available_engines() -> list:
+    """The registered engines' names: the reference's ``device``,
+    ``pallas``, ``numpy``, ``threads`` and ``snapshot``.  ``pallas`` is the
+    streaming engine under a second name: its parse is the hand-written
+    port of the reference's Pallas parse kernel, as ``device``'s is."""
     return sorted(_REGISTRY)
+
+
+def csr_convert_engine(engine: str) -> str:
+    """The ``convert_to_csr`` backend for a loader engine: the host
+    engines keep the host build, every other engine builds on its
+    product's device."""
+    return "numpy" if engine in HOST_ENGINES else "device"
 
 
 @contextlib.contextmanager
@@ -185,7 +215,8 @@ def _guard_int32_cap(path: str, cap: int) -> None:
     if cap > np.iinfo(np.int32).max:
         raise ValueError(
             f"{path}: edge capacity {cap} exceeds int32 indexing for the "
-            f"streaming engine; split the file")
+            f"streaming engine; use engine='numpy'/'threads' or shard the "
+            f"file (GraphSource.csr_sharded)")
 
 
 class _DeviceFeed:
@@ -372,9 +403,27 @@ class _StreamingEngine:
                         num_vertices)
 
 
+class _HostEngine:
+    """Adapter around a host parser of :mod:`.edgelist`."""
+
+    def __init__(self, name: str, fn: Callable):
+        self.name = name
+        self._fn = fn
+
+    def read_edgelist(self, path: str, *, weighted: bool = False,
+                      base: int = 1, num_vertices: Optional[int] = None,
+                      offset: int = 0, **kw) -> EdgeList:
+        return self._fn(path, weighted=weighted, base=base,
+                        num_vertices=num_vertices, offset=offset, **kw)
+
+
 def _register_builtin_engines() -> None:
+    from . import edgelist
     from .snapshot import SnapshotEngine
     register_engine(_StreamingEngine("device"))
+    register_engine(_StreamingEngine("pallas"))
+    register_engine(_HostEngine("numpy", edgelist.read_edgelist_numpy))
+    register_engine(_HostEngine("threads", edgelist.read_edgelist_threads))
     register_engine(SnapshotEngine())
 
 
@@ -426,8 +475,10 @@ def read_csr_via(path: str, opts: LoadOptions, *,
     order: the engine's ``read_csr_prebuilt`` (no parse, no build), its
     ``stream`` + the build (one sync for the edge count, one for the vertex
     count unless known, a power-of-two shrink of over-allocated buffers),
-    then an EdgeList (``fallback_edgelist``, or a read) + ``convert_to_csr``.
-    A symmetric load takes the last route.  Offsets come back int64."""
+    then an EdgeList (``fallback_edgelist``, or a read) + ``convert_to_csr``
+    by ``csr_convert_engine`` (a host engine builds on the host), the CSR
+    moved to the load's device.  A symmetric load takes the last route.
+    Offsets come back int64."""
     opts = resolve_tuned(opts)
     method = method or opts.method or "staged"
     bin_bits = bin_bits if bin_bits is not None else opts.bin_bits
@@ -460,7 +511,9 @@ def read_csr_via(path: str, opts: LoadOptions, *,
     from .csr import convert_to_csr
     el = (fallback_edgelist() if fallback_edgelist is not None
           else read_edgelist_via(path, opts))
-    return convert_to_csr(el, method=method, rho=rho, bin_bits=bin_bits)
+    return convert_to_csr(el, method=method, rho=rho, bin_bits=bin_bits,
+                          engine=csr_convert_engine(opts.engine)).to(
+                              resolve_device(opts.device))
 
 
 def read_csr_sharded_via(path: str, opts: LoadOptions, *, mesh,
@@ -473,8 +526,6 @@ def read_csr_sharded_via(path: str, opts: LoadOptions, *, mesh,
     ``all_to_all``.  Only the streaming engine has a byte-range plan;
     ``tune=True`` resolves against the per-shard-count profile slot."""
     from . import distributed
-    _group, d, _k = distributed._axis(mesh, axis)
-    opts = resolve_tuned(opts, shards=d)
     if opts.symmetric:
         raise ValueError(
             "sharded streaming load does not support symmetric=True "
@@ -483,7 +534,9 @@ def read_csr_sharded_via(path: str, opts: LoadOptions, *, mesh,
     if not isinstance(get_engine(opts.engine), _StreamingEngine):
         raise ValueError(
             f"engine {opts.engine!r} has no sharded streaming path; use a "
-            f"streaming engine ('device')")
+            f"streaming engine ('device' or 'pallas')")
+    _group, d, _k = distributed._axis(mesh, axis)
+    opts = resolve_tuned(opts, shards=d)
     kw = opts.stream_kwargs()
     dev = kw.pop("device")            # the mesh says where the rows live
     if dev is not None and torch.device(dev).type != mesh.device_type:

@@ -102,8 +102,12 @@ def read_mtx(path: str, *, engine: str = "device", device=None,
 
 def read_mtx_csr(path: str, *, method: str = "staged", rho: int = 4,
                  engine: str = "device", device=None) -> CSR:
+    """An MTX file as a CSR on ``device``; a host engine builds it on the
+    host, as in the reference."""
+    from .loader import csr_convert_engine
     return convert_to_csr(read_mtx(path, engine=engine, device=device),
-                          method=method, rho=rho)
+                          method=method, rho=rho,
+                          engine=csr_convert_engine(engine))
 
 
 def mtx_to_snapshot(path: str, out_path: str, *, engine: str = "device",

@@ -51,9 +51,9 @@ import torch
 from .env import resolve_device
 from .faults import fault_plan
 from .loader import (DEFAULT_CSR_ENGINE, DEFAULT_EDGELIST_ENGINE, LoadOptions,
-                     available_engines, engine_for_load, get_engine,
-                     read_csr_sharded_via, read_csr_via, read_edgelist_via,
-                     resolve_tuned)
+                     available_engines, csr_convert_engine, engine_for_load,
+                     get_engine, read_csr_sharded_via, read_csr_via,
+                     read_edgelist_via, resolve_tuned)
 from .types import CSR, EdgeList
 
 FORMAT_GVEL = "gvel"
@@ -364,11 +364,12 @@ class GraphSource:
 
     def _build_csr(self, method: str, rho: int,
                    bin_bits: Optional[int]) -> CSR:
+        opts = self._opts_for("csr")
         if self.format == FORMAT_MTX:
             from .csr import convert_to_csr
             return convert_to_csr(self.edgelist(), method=method, rho=rho,
-                                  bin_bits=bin_bits)
-        opts = self._opts_for("csr")
+                                  bin_bits=bin_bits,
+                                  engine=csr_convert_engine(opts.engine))
         return read_csr_via(
             self.path, opts, method=method, rho=rho, bin_bits=bin_bits,
             fallback_edgelist=lambda: self._edgelist_for(opts))
@@ -499,9 +500,14 @@ class GraphSource:
 
     def _edgelist_for(self, opts: LoadOptions) -> EdgeList:
         """EdgeList through ``opts.engine``, sharing the memo when the
-        engines coincide."""
+        engines coincide.  Without a memo, a host engine's edge list is
+        read on the CPU and not memoized: its CSR builds there, and only
+        the CSR moves to the source's device."""
         if self._el is not None and self._el_engine == opts.engine:
             return self._el
+        if csr_convert_engine(opts.engine) == "numpy":
+            return read_edgelist_via(
+                self.path, opts.replace(device=torch.device("cpu")))
         el = self._complete(read_edgelist_via(self.path, opts))
         if self._el is None:
             self._el_engine = opts.engine
@@ -540,8 +546,11 @@ class GraphSource:
         opts = resolve_tuned(self._opts_for("csr"))
         with engine_for_load(opts.engine) as eng, fault_plan(opts.faults):
             if not hasattr(eng, "stream"):
-                raise ValueError(f"engine {opts.engine!r} has no stream "
-                                 f"path; engines: {available_engines()}")
+                streaming = [n for n in available_engines()
+                             if hasattr(get_engine(n), "stream")]
+                raise ValueError(
+                    f"engine {opts.engine!r} has no stream fast path; "
+                    f"streaming engines: {streaming}")
             return eng.stream(self.path, **{**opts.stream_kwargs(), **kw})
 
     # -- write path ----------------------------------------------------------
@@ -586,7 +595,9 @@ class GraphSource:
                         from .csr import convert_to_csr
                         self._csrs[key] = self._complete(convert_to_csr(
                             el, method=method, rho=rho,
-                            bin_bits=self.options.bin_bits))
+                            bin_bits=self.options.bin_bits,
+                            engine=csr_convert_engine(
+                                self._opts_for("csr").engine)))
                 csr_obj = self.csr(method=method, rho=rho)
         save_snapshot(out_path, edgelist=el, csr=csr_obj, compress=compress,
                       compress_level=compress_level)

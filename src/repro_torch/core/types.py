@@ -5,7 +5,9 @@ vertex ids and targets, float32 weights, ``row_start`` for row-local CSRs.
 Offsets from the port's loaders are int64 (cast once from the int32 scan).
 ``.numpy()`` and ``from_numpy`` carry the JAX package's products, as numpy
 arrays, into the port's types and back.  :class:`GraphMeta` is a file
-header's view of a graph (MTX banner and size line).
+header's view of a graph (MTX banner and size line).  ``to(device)`` moves
+a product's tensors (the host engines build on the CPU and move once, at
+the end); :func:`csr_from_dense` is the reference's small test helper.
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ def _tensor(x, device) -> Optional[torch.Tensor]:
     return t if device is None else t.to(device)
 
 
+def _to(x, device) -> Optional[torch.Tensor]:
+    return None if x is None else x.to(device)
+
+
 @dataclasses.dataclass
 class EdgeList:
     """COO edges; ``weights`` is None for unweighted graphs."""
@@ -52,6 +58,13 @@ class EdgeList:
         return cls(_tensor(el.src, device), _tensor(el.dst, device),
                    _tensor(el.weights, device), int(el.num_edges),
                    int(el.num_vertices))
+
+    def to(self, device) -> "EdgeList":
+        """The edge list with its tensors on ``device`` (themselves where
+        they already are)."""
+        return EdgeList(self.src.to(device), self.dst.to(device),
+                        _to(self.weights, device), int(self.num_edges),
+                        int(self.num_vertices))
 
 
 @dataclasses.dataclass
@@ -97,6 +110,13 @@ class CSR:
                    _tensor(csr.weights, device), int(csr.num_vertices),
                    int(getattr(csr, "row_start", 0)))
 
+    def to(self, device) -> "CSR":
+        """The CSR with its tensors on ``device`` (themselves where they
+        already are)."""
+        return CSR(self.offsets.to(device), self.targets.to(device),
+                   _to(self.weights, device), int(self.num_vertices),
+                   int(self.row_start))
+
 
 @dataclasses.dataclass(frozen=True)
 class GraphMeta:
@@ -108,3 +128,20 @@ class GraphMeta:
     symmetric: bool
     base: int = 1                 # vertex-id base in the file (MTX is 1-based)
     pattern: bool = False         # MTX 'pattern': no weight column
+
+
+def csr_from_dense(adj, device=None) -> CSR:
+    """A CSR from a dense ``(V, V)`` adjacency count matrix, on ``device``
+    (default CUDA): int64 offsets, int32 targets in row-major order, a
+    repeated entry once per count (a small-graph test helper)."""
+    from .env import resolve_device
+    device = resolve_device(device)
+    adj = np.asarray(adj)
+    v = adj.shape[0]
+    offsets = np.zeros(v + 1, np.int64)
+    np.cumsum(adj.sum(axis=1).astype(np.int64), out=offsets[1:])
+    targets = np.concatenate([np.repeat(np.arange(v), adj[u])
+                              for u in range(v)]) if v else np.zeros(0)
+    return CSR(torch.from_numpy(offsets),
+               torch.from_numpy(targets.astype(np.int32)), None,
+               v).to(device)

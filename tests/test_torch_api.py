@@ -1,9 +1,9 @@
 """The port's public surface held against the JAX package's on the CPU:
 the ``CSR`` row accessors, every name of ``repro.core.__all__`` (but the
-host parsers and the jax shim), ``tune=`` at every entry point, the small
-pieces ported with them (``read_csr``, ``csr_to_dense``, ``LoaderEngine``,
-``generate``), and an import check: the serving modules and the scripts
-load neither jax nor the JAX package.
+jax shim), ``tune=`` at every entry point, the small pieces ported with
+them (``read_csr``, ``csr_to_dense``, ``LoaderEngine``, ``generate``), and
+an import check: the serving modules, the host engines and baselines and
+the scripts load neither jax nor the JAX package.
 """
 import os
 import subprocess
@@ -25,10 +25,6 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 # names of repro.core.__all__ the port does not have, and why (ROADMAP.md)
 WAITING = {
-    "baselines": "not planned: host parsers",
-    "parse_np": "not planned: host parsers",
-    "read_edgelist": "not planned: host parsers",
-    "read_edgelist_numpy": "not planned: host parsers",
     "compat": "a jax-only shim",
 }
 
@@ -198,7 +194,9 @@ def test_port_modules_load_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core.cache, "
             "repro_torch.core.faults, repro_torch.core.generate, "
-            "repro_torch.core.distributed, repro_torch.core.tune\n"
+            "repro_torch.core.distributed, repro_torch.core.tune, "
+            "repro_torch.core.parse_np, repro_torch.core.baselines, "
+            "repro_torch.core.edgelist\n"
             "import repro_torch.scripts.convert, "
             "repro_torch.scripts.chaos_matrix, "
             "repro_torch.scripts.local_world\n"

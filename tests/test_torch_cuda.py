@@ -1261,3 +1261,43 @@ def test_local_step_at_fsdp_in_an_nccl_world_of_one(cuda_device, tmp_path):
             assert torch.equal(s1.nu[name], s0.nu[name])
     finally:
         dist.destroy_process_group()
+
+
+# ---- the host engines' products on the card -----------------------------------
+
+@pytest.mark.parametrize("engine", ["numpy", "threads"])
+@pytest.mark.parametrize("method", ["staged", "binned"])
+def test_host_engine_csr_lands_on_the_card(cuda_device, weighted_text, engine,
+                                           method):
+    """A host engine parses and builds on the host and moves the CSR to the
+    card once: the CUDA tensors equal the ``device`` engine's CSR (offsets,
+    targets) and the host engine's CPU run (weights too); the card runs no
+    kernel for it."""
+    knob = {"num_workers": 3} if engine == "threads" else {}
+    kernels.reset_launches()
+    got = repro_torch.load_csr(weighted_text, engine=engine, weighted=True,
+                               method=method, **knob)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert got.offsets.is_cuda and got.targets.is_cuda and got.weights.is_cuda
+    assert got.offsets.dtype == torch.int64
+    dev = repro_torch.load_csr(weighted_text, weighted=True, method=method)
+    assert torch.equal(got.offsets, dev.offsets)
+    assert torch.equal(got.targets, dev.targets)
+    _same_csr(got, repro_torch.load_csr(weighted_text, engine=engine,
+                                        weighted=True, method=method,
+                                        device="cpu"))
+    el = repro_torch.load_edgelist(weighted_text, engine=engine,
+                                   weighted=True)
+    assert el.src.is_cuda and el.weights.is_cuda
+
+
+@pytest.mark.parametrize("method", ["global", "staged", "binned"])
+def test_convert_to_csr_numpy_of_a_card_edge_list(cuda_device, weighted_text,
+                                                  method):
+    from repro_torch.core import convert_to_csr
+    el = repro_torch.load_edgelist(weighted_text, weighted=True)
+    kernels.reset_launches()
+    got = convert_to_csr(el, method=method, engine="numpy")
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert got.offsets.is_cuda and got.targets.is_cuda and got.weights.is_cuda
+    _same_csr(got, convert_to_csr(el.to("cpu"), method=method))

@@ -299,8 +299,7 @@ def _matrix(tmp):
     cases.append({"name": "refuse_axis", "kind": "via", "path": str(tiny),
                   "open": {"engine": "device"}, "call": {"axis": "model"}})
     cases.append({"name": "refuse_engine", "kind": "via", "path": str(tiny),
-                  "open": {"engine": "snapshot"}, "ref_open": {
-                      "engine": "numpy"}})
+                  "open": {"engine": "numpy"}})
     return cases
 
 
@@ -317,7 +316,7 @@ mesh = make_mesh((4,), ("data",))
 errors = {}
 for case in json.load(open(spec)):
     name, kind, path = case["name"], case["kind"], case["path"]
-    kw = dict(case.get("open", {}), **case.get("ref_open", {}))
+    kw = dict(case.get("open", {}))
     if "rank_beta" in case:
         kw["beta"] = case["rank_beta"][0]
     call = case.get("call", {})
@@ -421,17 +420,15 @@ def test_overflow_raises_on_every_rank(worlds):
     ("refuse_symmetric", "symmetric"), ("refuse_axis", "no axis"),
     ("refuse_engine", "no sharded streaming path")])
 def test_front_door_refusals_match_reference(worlds, name, match):
-    """The same ``ValueError`` on every rank; the same message as the
-    reference's, except the engine named (the port's non-streaming engine
-    is ``snapshot``, the reference's ``numpy``)."""
+    """The same ``ValueError`` on every rank, with the reference's
+    message."""
     _cases, out, reports = worlds
     ref = json.loads((out / "ref_errors.json").read_text())[name]
     assert ref[0] == "ValueError" and match in ref[1]
     for r in reports:
         kind, msg = r["errors"][name]
         assert kind == "ValueError" and match in msg
-        if name != "refuse_engine":
-            assert msg == ref[1]
+        assert msg == ref[1]
 
 
 def test_shard_reexec_counts_one_retry_on_the_failed_shard(worlds):

@@ -410,7 +410,8 @@ def test_exact_length_stream_builds_like_the_reference(texts, tmp_path,
 
 
 def test_snapshot_engine_is_registered_and_routed(texts, tmp_path):
-    assert repro_torch.core.available_engines() == ["device", "snapshot"]
+    assert repro_torch.core.available_engines() == [
+        "device", "numpy", "pallas", "snapshot", "threads"]
     path = _zlib_snapshot(tmp_path, texts)
     src = repro_torch.open_graph(path, device="cpu", engine="device")
     assert src.options.engine == "snapshot"
