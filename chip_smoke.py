@@ -21,7 +21,11 @@ Phases (any failure exits non-zero):
    accumulators, weighted and not; the histogram on sorted runs, padded
    partitions, sizes around its chunk and tile, views at every 4-byte
    alignment and 2-D rows; the gather at widths 5, 33, 128 and 1000 with
-   batches around its group of 32 ids);
+   batches around its group of 32 ids; ``linear_scan`` forward and reverse
+   at T in {1, 7, 256, 300}, 2 x C threads below and above one block, a
+   zero and a random h0, within ``SCAN_TOL`` of its plain version, bitwise
+   the sequential torch loop on the card, and its gradients against the
+   plain version's autograd);
 2. make RMAT text graphs with Graph500's parameters from a seed: scale 22
    (4,194,304 vertices, 67,108,864 edges, 1-based), a weighted scale-18
    file and a gzip scale-18 file; cached under ``build/repro_torch``;
@@ -158,11 +162,14 @@ Phases (any failure exits non-zero):
     (phi4-mini, mixtral, recurrentgemma, falcon-mamba, llama-3.2-vision,
     musicgen) on the card against the same f32 weights on the CPU: every
     leaf's gradient, then one step's loss, gradient norm and params, with
-    cuBLAS's bf16 reduced-precision reduction on and off.  Then, on the
-    reduced phi4-mini: 6 steps checkpointed at steps 3 and 6, restored at 3
-    and replayed (losses within 1e-5), ``accum_steps=2`` against 1 on one
-    batch, and ``--compress-grads`` through the entry point carrying a
-    nonzero error buffer.  Its numbers are under ``train_lm`` in the JSON;
+    cuBLAS's bf16 reduced-precision reduction on and off (the recurrent
+    archs' scans and their backward run ``linear_scan`` on the card and the
+    plain version on the CPU: 6 launches a recurrent layer, counted).
+    Then, on the reduced phi4-mini: 6 steps checkpointed at steps 3 and 6,
+    restored at 3 and replayed (losses within 1e-5), ``accum_steps=2``
+    against 1 on one batch, and ``--compress-grads`` through the entry
+    point carrying a nonzero error buffer.  Its numbers are under
+    ``train_lm`` in the JSON;
 3i. (run last, after 3h) data-parallel training, its numbers under
     ``train_dp`` in the JSON.  (b) First a world of two ranks over gloo,
     both on this one card (a test of the d > 1 arithmetic, not a
@@ -290,6 +297,22 @@ Phases (any failure exits non-zero):
     edges/s by loader, the card path's speedup over each, the ratio for
     each doubling of threads, and the host's CPU model and cores beside
     the card's ``nvidia-smi`` line;
+3n. (run last, after 3m) recurrent prefill at full width through the
+    chunked scan, its numbers under ``recurrent_prefill`` in the JSON:
+    falcon-mamba-7b (64 Mamba layers) and then recurrentgemma-2b (26
+    layers, 18 RG-LRU), bf16 weights drawn on the card from the seed, each
+    freed before the next.  Each runs ``forward_prefill`` over 2 prompts
+    of 4,096 tokens (16 chunks of 256), the port's walks over 3c's raw
+    snapshot mod the vocab; the launch counts set to 0 just before the
+    first prefill and read just after: ``linear_scan`` launches layers x
+    16 times.  Against the same model with the plain scan forced, on the
+    same card: the logits within ``LOGIT_TOL`` (each layer's final state
+    recorded), and each recurrent mix, run again with the plain scan on
+    the kernel path's own input, its final state within
+    ``LAYER_STATE_TOL`` and its output within ``LAYER_OUT_TOL``; prefill
+    ms on CUDA events in turns (kernel, plain, plain, kernel), tokens/s,
+    one traced prefill's launches and device ms (``linear_scan``'s among
+    them), peak memory;
 4. each kernel at the main path's shapes: bitwise against its plain
    version on the same inputs, then timed beside its plain version, one
    PyTorch call computing the same function (where there is one), and its
@@ -306,7 +329,11 @@ Phases (any failure exits non-zero):
    ``parse_accumulate`` at one main-path batch against its plain path;
    ``parse_blocks`` (the parse kernel plus the per-block compaction) at
    the same batch against its CPU run; ``neighbor_gather`` on both of its
-   inputs.  With ``--parent DIR`` (a checkout of another commit, e.g. a
+   inputs; ``linear_scan`` at falcon-mamba-7b's chunk (2, 256, 8192 x 16)
+   and recurrentgemma-2b's (8, 256, 2560), within ``SCAN_TOL`` of its plain
+   version and bitwise the sequential loop, its bound the bytes of a, b,
+   h0 and h over 3.35 TB/s (no PyTorch call computes the recurrence).
+   With ``--parent DIR`` (a checkout of another commit, e.g. a
    ``git archive`` of the parent), DIR's port is imported under another
    name, and its scan, parse, parse + packing, histogram (on both inputs),
    ``staged`` build and gather (on both inputs) are timed on the same
@@ -662,7 +689,75 @@ def phase_build(torch, kernels, report):
                         and torch.equal(got[1].cpu(), want[1]),
                         f"neighbor_gather (width {width}, B={b}, "
                         f"{o.dtype})")
+    scan_checks(torch, kernels, g)
     say("phase 1: kernels build and agree with their plain versions")
+
+
+# linear_scan against its plain version: the kernel steps each channel's
+# recurrence in order and the plain version combines in jax's tree order,
+# so they differ by f32 rounding: within SCAN_TOL of the largest state (a
+# few units here).  Against the same sequential loop in torch ops on the
+# card (a multiply, then an add, each rounded) the kernel is bitwise.
+SCAN_TOL = 1e-5
+
+
+def scan_inputs(torch, g, shape, zero_h0, dev):
+    """Decays in [0.5, 1), normal inputs, a zero or normal h0."""
+    b, _, c = shape
+    a = torch.rand(shape, generator=g, device=dev) * 0.5 + 0.5
+    x = torch.randn(shape, generator=g, device=dev)
+    h0 = (torch.zeros((b, c), device=dev) if zero_h0 else
+          torch.randn((b, c), generator=g, device=dev))
+    return a, x, h0
+
+
+def scan_err(got, want) -> float:
+    """The largest difference over the largest magnitude (at least 1)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def scan_checks(torch, kernels, g):
+    """``linear_scan`` on small shapes, forward and reverse: T in {1, 7,
+    256, 300}; 2 x C threads below one block of 256 and across several; a
+    zero and a random h0.  Against the plain version on the CPU within
+    SCAN_TOL, the sequential loop on the card bitwise, one launch a call;
+    then the op's gradients (the kernel reversed) against autograd
+    through the plain version."""
+    dev = torch.device("cuda", 0)
+    for reverse in (False, True):
+        for steps in (1, 7, 256, 300):
+            for channels in (5, 100, 1000):
+                for zero_h0 in (True, False):
+                    a, x, h0 = scan_inputs(torch, g, (2, steps, channels),
+                                           zero_h0, "cpu")
+                    on = [t.to(dev) for t in (a, x, h0)]
+                    what = (f"linear_scan (T={steps}, C={channels}, "
+                            f"{'zero' if zero_h0 else 'random'} h0, "
+                            f"{'reverse' if reverse else 'forward'})")
+                    kernels.reset_launches()
+                    got = kernels.linear_scan(*on, reverse=reverse)
+                    torch.cuda.synchronize()
+                    require(kernels.LAUNCHES["linear_scan"] == 1,
+                            f"{what}: one launch")
+                    want = kernels.linear_scan_ref(a, x, h0, reverse)
+                    require(scan_err(got.cpu(), want) <= SCAN_TOL,
+                            f"{what}: within {SCAN_TOL} of the plain version")
+                    require(torch.equal(got, kernels.linear_scan_loop(
+                        *on, reverse=reverse)),
+                        f"{what}: bitwise the sequential loop on the card")
+        a, x, h0 = scan_inputs(torch, g, (2, 300, 130), False, "cpu")
+        gh = torch.randn(a.shape, generator=g)
+        grads = []
+        for d, fn in ((dev, kernels.linear_scan),
+                      ("cpu", kernels.linear_scan_ref)):
+            xs = [t.to(d).requires_grad_() for t in (a, x, h0)]
+            (fn(*xs, reverse=reverse) * gh.to(d)).sum().backward()
+            grads.append([t.grad.cpu() for t in xs])
+        for name, got, want in zip(("a", "b", "h0"), *grads):
+            err = float((got - want).abs().max() / want.abs().max())
+            require(err <= SCAN_TOL, f"linear_scan d{name} "
+                    f"({'reverse' if reverse else 'forward'}): {err} of the "
+                    f"largest against the plain version's autograd")
 
 
 def hist_hazards(torch, g):
@@ -2599,9 +2694,11 @@ def kind_step(torch, name, reduced_precision):
     weights and batch: each leaf's gradient of one loss, then one training
     step's loss, gradient norm and updated params."""
     import copy
+    from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.data.synthetic import synthetic_batch
     from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.blocks import layer_kinds
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.state import init_state
     from repro_torch.train.step import make_train_step
@@ -2623,12 +2720,14 @@ def kind_step(torch, name, reduced_precision):
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         reduced_precision
+    kernels.reset_launches()
     try:
         g_card = grads(card, {k: v.to(dev) for k, v in batch.items()})
         s_card, m_card = step_fn(init_state(card), batch)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             flag
+    launches = dict(kernels.LAUNCHES)
     g_cpu = grads(cpu, batch)
     s_cpu, m_cpu = step_fn(init_state(cpu), batch)
     gerr = max(float((g_card[n] - g).abs().max() / g.abs().max())
@@ -2648,9 +2747,17 @@ def kind_step(torch, name, reduced_precision):
             f"{what}: grad norm {gn} against the CPU's {gn_want}")
     require(err <= CARD_PARAM_ATOL, f"{what}: params within "
             f"{CARD_PARAM_ATOL} of the CPU's (max {err})")
+    # a recurrent layer's scan and its backward run the kernel on the card
+    # and the plain version on the CPU: forward, recompute and reversed
+    # scan (remat "full") in the gradients and again in the step
+    recurrent = sum(k in ("mamba", "rglru") for k in layer_kinds(cfg))
+    require(launches["linear_scan"] == 6 * recurrent,
+            f"{what}: linear_scan launched {launches['linear_scan']} times, "
+            f"not 6 a recurrent layer ({recurrent})")
     return {"loss": loss, "cpu_loss": want, "grad_norm": gn,
             "cpu_grad_norm": gn_want, "grad_max_rel_err": gerr,
-            "param_max_abs_err": err}
+            "param_max_abs_err": err,
+            "linear_scan_launches": launches["linear_scan"]}
 
 
 def train_resume(torch, row):
@@ -4756,6 +4863,231 @@ def phase_host_engines(torch, repro_torch, kernels, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: recurrent prefill at full width through the chunked scan
+# ---------------------------------------------------------------------------
+
+PREFILL_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b")
+PREFILL_ROWS, PREFILL_LEN = 2, 4096      # 16 of the layers' 256-token chunks
+PREFILL_CHUNK = 256
+# the kernel's prefill against the same model with the plain scan forced,
+# on the same card, weights and tokens.  Layer by layer, each recurrent
+# mix run again with the plain scan on the kernel path's own input: the
+# scans differ by f32 rounding only, within SCAN_TOL a chunk, so the final
+# state after 16 chunks within 16 x SCAN_TOL of max(1, its largest); the
+# mix's bf16 output within the repo's TOL (2e-2) of its largest (an ulp
+# of bf16 flips where the two f32 results straddle a rounding boundary).
+# Whole model: each layer rounds to bf16, so flips carry and grow through
+# the layers; the logits are held at LOGIT_TOL (two bf16 paths of one
+# model, as phase 3f holds them) and each layer's final state is recorded
+# (on falcon-mamba-7b up to 0.044 of its largest in the deep layers, on an
+# H100: PERF.md, section 6)
+LAYER_STATE_TOL = 16 * 1e-5
+LAYER_OUT_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """The layers' scan swapped for its plain version while the block
+    runs (this phase's comparison only; the port has no such switch)."""
+    from repro_torch.kernels import linear_scan_ref
+    from repro_torch.models import mamba, rglru
+
+    def plain(a, b, h0, *, reverse=False):
+        return linear_scan_ref(a, b, h0, reverse)
+    saved = mamba.linear_scan, rglru.linear_scan
+    mamba.linear_scan = rglru.linear_scan = plain
+    try:
+        yield
+    finally:
+        mamba.linear_scan, rglru.linear_scan = saved
+
+
+@contextlib.contextmanager
+def layer_by_layer(errs):
+    """Each recurrent mix run twice while the block runs: as it is (the
+    kernel), then with the plain scan on the same input; appends
+    ``(state err, output err)`` of each call to ``errs`` and returns the
+    kernel's results."""
+    from repro_torch.models import mamba, rglru
+    saved = mamba.mamba_mix, rglru.rglru_mix
+
+    def twice(mix):
+        def run(p, u_raw, gate, cfg, **kw):
+            out, state = mix(p, u_raw, gate, cfg, **kw)
+            with plain_scan():
+                pout, pstate = mix(p, u_raw, gate, cfg, **kw)
+            errs.append((scan_err(state, pstate),
+                         float((out.float() - pout.float()).abs().max()
+                               / pout.float().abs().max())))
+            return out, state
+        return run
+    mamba.mamba_mix, rglru.rglru_mix = twice(saved[0]), twice(saved[1])
+    try:
+        yield
+    finally:
+        mamba.mamba_mix, rglru.rglru_mix = saved
+
+
+def prefill_ms(torch, fn) -> float:
+    """One prefill's ms on CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def recurrent_prefill(torch, kernels, arch, snap_path, report):
+    """One arch of phase 3n at its published widths and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import prng
+    from repro_torch.data.walks import random_walks
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.blocks import layer_kinds
+    import repro_torch
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    free_card(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"arch": arch, "layers": cfg.num_layers, "rows": PREFILL_ROWS,
+           "tokens_a_row": PREFILL_LEN,
+           "chunks_a_layer": PREFILL_LEN // PREFILL_CHUNK,
+           "widths": {k: getattr(cfg, k) for k in (
+               "d_model", "d_inner", "lru_width", "vocab_size")}}
+    if cfg.ssm:
+        row["widths"]["d_state"] = cfg.ssm.d_state
+    recurrent = sum(k in ("mamba", "rglru") for k in layer_kinds(cfg))
+    row["recurrent_layers"] = recurrent
+
+    # prompts: the port's walks over 3c's raw snapshot, mod the vocab
+    csr = repro_torch.open_graph(snap_path).csr()
+    walks = random_walks(csr.offsets, csr.targets, prng.key(SEED, device=dev),
+                         num_walks=PREFILL_ROWS, length=PREFILL_LEN,
+                         num_vertices=csr.num_vertices)
+    require(walk_steps_valid(torch, walks, csr.offsets, csr.targets),
+            f"{arch}: every prompt step is an edge or a dead-end self-loop")
+    toks = {"tokens": (walks % cfg.vocab_size).to(torch.int32)}
+    del csr, walks
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    row["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+
+    def prefill():
+        return forward_prefill(model, toks, cfg, PREFILL_LEN)
+
+    with torch.inference_mode():
+        # the main path: the counts set to 0 just before, read just after
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = prefill()
+        torch.cuda.synchronize()
+        row["first_prefill_s"] = time.perf_counter() - t0
+        row["launches"] = dict(kernels.LAUNCHES)
+        want = recurrent * PREFILL_LEN // PREFILL_CHUNK
+        need(row["launches"], ("linear_scan",), f"{arch} prefill")
+        require(row["launches"]["linear_scan"] == want,
+                f"{arch}: {row['launches']['linear_scan']} linear_scan "
+                f"launches, not {want} (layers x chunks)")
+        key = "ssm" if cfg.ssm else "h"
+        states = [c[key] for c in caches if key in c]
+        with plain_scan():
+            kernels.reset_launches()
+            plogits, pcaches = prefill()
+            torch.cuda.synchronize()
+            require(kernels.LAUNCHES["linear_scan"] == 0,
+                    f"{arch}: the plain scan launches no kernel")
+        pstates = [c[key] for c in pcaches if key in c]
+        require(bool(torch.isfinite(logits.float()).all())
+                and tuple(logits.shape) == (PREFILL_ROWS, cfg.vocab_size),
+                f"{arch}: finite logits of shape (rows, vocab)")
+        lerr = float((logits.float() - plogits.float()).abs().max())
+        serrs = [float((s - p).abs().max() / p.abs().max())
+                 for s, p in zip(states, pstates)]
+        row["against_plain_scan"] = {
+            "logits_max_abs_err": lerr, "logits_tol": LOGIT_TOL,
+            "greedy_equal": bool(torch.equal(logits.argmax(-1),
+                                             plogits.argmax(-1))),
+            "state_rel_err_by_layer": serrs}
+        require(lerr <= LOGIT_TOL, f"{arch}: logits {lerr} from the plain "
+                f"scan's (tol {LOGIT_TOL})")
+        del logits, caches, plogits, pcaches, states, pstates
+        errs = []
+        with layer_by_layer(errs):
+            prefill()
+        require(len(errs) == recurrent, f"{arch}: every recurrent layer "
+                f"checked ({len(errs)})")
+        row["layer_by_layer"] = {
+            "state_err": [e[0] for e in errs], "state_tol": LAYER_STATE_TOL,
+            "out_rel_err": [e[1] for e in errs], "out_tol": LAYER_OUT_TOL}
+        for i, (serr, oerr) in enumerate(errs):
+            require(serr <= LAYER_STATE_TOL and oerr <= LAYER_OUT_TOL,
+                    f"{arch} recurrent layer {i} against its plain scan: "
+                    f"state {serr} (tol {LAYER_STATE_TOL}), output {oerr} "
+                    f"(tol {LAYER_OUT_TOL})")
+
+        # in turns: kernel, plain, plain, kernel
+        times = {"kernel": [], "plain": []}
+        for who in ("kernel", "plain", "plain", "kernel"):
+            if who == "plain":
+                with plain_scan():
+                    times[who].append(prefill_ms(torch, prefill))
+            else:
+                times[who].append(prefill_ms(torch, prefill))
+        ms = sum(times["kernel"]) / 2
+        row["prefill_ms"] = times["kernel"]
+        row["plain_scan_prefill_ms"] = times["plain"]
+        row["tokens_per_s"] = PREFILL_ROWS * PREFILL_LEN / ms * 1e3
+
+        with traced(torch) as prof:
+            prefill()
+        launches, records = card_records(prof)
+        kept = [records[e.id] for e in launches if e.id in records]
+        scan = [r for r in kept if "linear_scan" in r.name]
+        row["profile"] = {
+            "launches": len(launches),
+            "kernel_launches": sum("LaunchKernel" in e.name
+                                   for e in launches),
+            "device_ms": sum(r.time_range.end - r.time_range.start
+                             for r in kept) / 1e3,
+            "records_lost": len(launches) - len(kept),
+            "linear_scan_calls": len(scan),
+            "linear_scan_device_ms": sum(r.time_range.end
+                                         - r.time_range.start
+                                         for r in scan) / 1e3}
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model, toks
+    free_card(torch)
+    row["arch_s"] = time.perf_counter() - t_arch
+    report.append(row)
+    say(json.dumps({"recurrent_prefill": row}))
+    return row["launches"]
+
+
+def phase_recurrent_prefill(torch, kernels, snap_path, report):
+    """Recurrent prefill at full width (phase 3n): falcon-mamba-7b (64
+    layers) and recurrentgemma-2b (26), bf16 weights drawn on the card,
+    one after the other.  Returns each arch's launch counts."""
+    t_phase = time.perf_counter()
+    rows, by_path = [], {}
+    for arch in PREFILL_ARCHS:
+        by_path[f"recurrent_prefill: {arch}"] = recurrent_prefill(
+            torch, kernels, arch, snap_path, rows)
+    report["recurrent_prefill"] = {"archs": rows,
+                                   "phase_s": time.perf_counter() - t_phase}
+    say(f"phase 3n: falcon-mamba-7b and recurrentgemma-2b prefill "
+        f"{PREFILL_ROWS} x {PREFILL_LEN} tokens at full width through "
+        f"linear_scan ({report['recurrent_prefill']['phase_s']:.1f}s)")
+    return by_path
+
+
 def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
                   report):
     """Each kernel at the main path's shapes: parity, then times.  ``runs``
@@ -4986,6 +5318,61 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     return {"bufs": bufs, "owned": (os_, oe), "edge_bound": bound,
             "deg": deg, "hist": inputs, "v": v22, "csr": csr,
             "gather": consumers["inputs"], "build": (src2, dst2)}
+
+
+# linear_scan at the chunk shapes of the recurrent layers at full width:
+# falcon-mamba-7b's (2 rows, 256 tokens, d_inner 8,192 x d_state 16) and
+# recurrentgemma-2b's (8 rows, 256 tokens, lru_width 2,560)
+SCAN_SHAPES = {"mamba_chunk": (2, 256, 8192 * 16),
+               "rglru_chunk": (8, 256, 2560)}
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+
+
+def phase_scan_kernel(torch, kernels, report):
+    """Phase 4 for ``linear_scan``: at each chunk shape against the plain
+    version (within SCAN_TOL) and the sequential loop on the card
+    (bitwise), then timed beside the plain version and its bound.  No
+    single PyTorch call computes a first-order recurrence: no library
+    time.  The row's ``launches`` are phase 3n's."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    for name, shape in SCAN_SHAPES.items():
+        a, x, h0 = scan_inputs(torch, g, shape, False, dev)
+        got = kernels.linear_scan(a, x, h0)
+        err = scan_err(got, kernels.linear_scan_ref(a, x, h0))
+        require(err <= SCAN_TOL, f"linear_scan ({name}): {err} against the "
+                f"plain version")
+        require(torch.equal(got, kernels.linear_scan_loop(a, x, h0)),
+                f"linear_scan ({name}): bitwise the sequential loop")
+        del got
+        b, t, c = shape
+        nbytes = 12 * b * t * c + 4 * b * c
+        flops = 2 * b * t * c
+        rows[name] = dict(
+            max_abs_err=err,
+            **timed(torch, lambda: kernels.linear_scan(a, x, h0), 20),
+            plain_ms=cuda_ms(torch, lambda: kernels.linear_scan_ref(
+                a, x, h0), 5, warmup=1),
+            plain_device_ms=device_ms(
+                torch, lambda: kernels.linear_scan_ref(a, x, h0), 5),
+            bound_ms=max(bound_ms(nbytes), flops / F32_FLOPS_PER_S * 1e3),
+            bytes=nbytes, flops=flops,
+            shape=f"{shape} f32 a, b -> h, h0 ({b}, {c})")
+        del a, x, h0
+    torch.cuda.empty_cache()
+    main = rows["mamba_chunk"]
+    row = dict(
+        name="linear_scan", route="cuda",
+        source="src/repro_torch/csrc/linear_scan.cu",
+        replaces="none: XLA's jax.lax.associative_scan at "
+                 "src/repro/models/mamba.py:61 and "
+                 "src/repro/models/rglru.py:75 (no Pallas kernel)",
+        launches=0, bound_by="bytes", library_ms=None, bitwise=False,
+        **main, rglru_chunk=rows["rglru_chunk"])
+    report["kernels"].append(row)
+    say(json.dumps({"linear_scan": row}))
+    return row
 
 
 def phase_parent(torch, kernels, parent_dir, inputs, report):
@@ -5287,6 +5674,7 @@ def main() -> int:
     inputs = phase_kernels(torch, repro_torch, kernels, p22, v22,
                            {r["method"]: r["launches"] for r in runs[:3]},
                            consumers, report)
+    scan_row = phase_scan_kernel(torch, kernels, report)
     if args.parent:
         phase_parent(torch, kernels, args.parent, inputs, report)
     del inputs
@@ -5320,13 +5708,16 @@ def main() -> int:
                                   p22, report))
     by_path.update(phase_serve_kinds(torch, kernels, served_snap, p22,
                                      report))
-    os.remove(served_snap)
     by_path.update(phase_train_lm(torch, kernels, p22, report))
     by_path.update(phase_train_dp(torch, kernels, p22, report))
     by_path.update(phase_tp(torch, kernels, p22, report))
     by_path.update(phase_fsdp(torch, kernels, p22, report))
     by_path.update(phase_launch(torch, kernels, report))
     by_path.update(phase_host_engines(torch, repro_torch, kernels, report))
+    prefill = phase_recurrent_prefill(torch, kernels, served_snap, report)
+    os.remove(served_snap)
+    by_path.update(prefill)
+    scan_row["launches"] = sum(c["linear_scan"] for c in prefill.values())
     for row in report["kernels"]:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}

@@ -10,10 +10,13 @@ tensor, a launch count in ``_lib.LAUNCHES``).
   degree_histogram  vertex degrees (Alg. 2)
   exclusive_scan    degrees -> CSR offsets (Alg. 2 exclusiveScan)
   neighbor_gather   batched fixed-width CSR row reads (the CSR's consumers)
+  linear_scan       h_t = a_t * h_{t-1} + b_t over a chunk (the Mamba and
+                    RG-LRU layers' recurrence; ``repro::linear_scan``)
 """
 from ._lib import LAUNCHES, reset_launches
 from .degree_histogram import degree_histogram, degree_histogram_ref
 from .exclusive_scan import csr_offsets, exclusive_scan, exclusive_scan_ref
+from .linear_scan import linear_scan, linear_scan_loop, linear_scan_ref
 from .neighbor_gather import neighbor_gather, neighbor_gather_ref
 from .parse_edges import (parse_accumulate, parse_accumulate_ref,
                           parse_bytes, parse_bytes_ref)
@@ -25,4 +28,5 @@ __all__ = [
     "degree_histogram", "degree_histogram_ref",
     "exclusive_scan", "csr_offsets", "exclusive_scan_ref",
     "neighbor_gather", "neighbor_gather_ref",
+    "linear_scan", "linear_scan_ref", "linear_scan_loop",
 ]

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", *ARCH_FLAGS, "-Xcompiler", "-fPIC",
 MIN_CAPABILITY = (9, 0)
 
 LAUNCHES = {"parse_bytes": 0, "parse_accumulate": 0, "exclusive_scan": 0,
-            "degree_histogram": 0, "neighbor_gather": 0}
+            "degree_histogram": 0, "neighbor_gather": 0, "linear_scan": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "repro_degree_histogram": ([_P, _I64, _I64, _P, _I64, _P], ctypes.c_int),
     "repro_neighbor_gather": ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _P,
                                _I64, _P], ctypes.c_int),
+    "repro_linear_scan": ([_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+                          ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -21,7 +21,8 @@ step dispatches, on real tensors or on the fake ones of the dry run
 * **flops**: ``torch.utils.flop_counter.FlopCounterMode``'s total (and
   by op);
 * **bytes accessed**: the bytes of every input and output tensor of every
-  ``aten`` op that is not a view, XLA's ``"bytes accessed"`` convention;
+  ``aten`` op and every op of the port's own (``repro::linear_scan``)
+  that is not a view, XLA's ``"bytes accessed"`` convention (and by op);
 * **memory**: the storage the step allocated (each storage counted once,
   from the op that made it to its death), its live total and peak; the
   storages of the arguments (:meth:`Recorder.__init__`) are not counted.
@@ -36,6 +37,9 @@ from typing import Dict, Iterable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import register_flop_formula
+
+from ..kernels.linear_scan.ops import NAMESPACE
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -63,6 +67,17 @@ _KIND = {
 }
 # ops of those namespaces that move nothing of their own
 _NOT_COUNTED = {"wait_tensor", "send"}
+# the namespaces whose ops count toward bytes accessed and memory: ATen's
+# and the port's own ops
+COUNTED = ("aten", NAMESPACE)
+
+
+@register_flop_formula(getattr(torch.ops, NAMESPACE).linear_scan)
+def _linear_scan_flop(a_shape, *args, **kwargs) -> int:
+    """A multiply and an add an element and step.  XLA counts the
+    reference's associative scan higher, about 2 log2(T) an element: its
+    odd/even recursion combines each pair once a level."""
+    return 2 * a_shape[0] * a_shape[1] * a_shape[2]
 
 
 def kind_of(func) -> str | None:
@@ -134,6 +149,7 @@ class Recorder(TorchDispatchMode):
         from torch.utils.flop_counter import FlopCounterMode
         self.collectives: Dict[str, Dict[str, int]] = {}
         self.bytes_accessed = 0
+        self._bytes_by_op: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
         self._args = storage_keys(arguments)
@@ -164,6 +180,10 @@ class Recorder(TorchDispatchMode):
         return dict(sorted(((str(k), int(v)) for k, v in got.items()),
                            key=lambda kv: -kv[1]))
 
+    def bytes_by_op(self) -> Dict[str, int]:
+        """The bytes accessed of each counted op, largest first."""
+        return dict(sorted(self._bytes_by_op.items(), key=lambda kv: -kv[1]))
+
     def _free(self, key: int, nbytes: int) -> None:
         if self._held.pop(key, None) is not None:
             self.live -= nbytes
@@ -190,13 +210,15 @@ class Recorder(TorchDispatchMode):
             rec["calls"] += 1
             rec["bytes"] += sum(_nbytes(t) for t in _tensors(buf))
             return out
-        if func.namespace != "aten":
+        if func.namespace not in COUNTED:
             return out
         outs = _tensors(out)
         self._hold(outs)
         if not func.is_view:
-            self.bytes_accessed += sum(
-                _nbytes(t) for t in _tensors((args, kwargs)) + outs)
+            n = sum(_nbytes(t) for t in _tensors((args, kwargs)) + outs)
+            self.bytes_accessed += n
+            op = str(func.overloadpacket)
+            self._bytes_by_op[op] = self._bytes_by_op.get(op, 0) + n
         return out
 
     def calls(self) -> Dict[str, int]:

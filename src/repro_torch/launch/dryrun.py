@@ -34,7 +34,8 @@ The record has the reference's keys:
   step's (nothing is compiled: it is the time the step takes to trace).
 
 and ``collective_calls_per_device`` (the calls per collective),
-``flops_by_op_per_device`` and ``device`` besides.  Skipped cells are the reference's
+``flops_by_op_per_device``, ``bytes_by_op_per_device`` and ``device``
+besides.  Skipped cells are the reference's
 (``shapes.cell_enabled``), with its reason.
 
 Usage::
@@ -61,10 +62,6 @@ BF16 = torch.bfloat16
 F32 = torch.float32
 LOCAL_MODES = ("local_accum", "local_accum_int8", "local_zero1")
 SKIP_REASON = "full attention arch; long_500k documented skip"
-RECURRENT = ("mamba", "rglru")
-# a fake step dispatches a few thousand ops a second: past this many
-# eager steps of a recurrence a cell takes hours
-RECURRENT_STEPS = 100_000
 
 
 def build_cell(cfg, shape, mesh, *, remat_policy="full",
@@ -236,6 +233,7 @@ def counts_of(rec) -> dict:
     return {"flops_per_device": rec.flops,
             "flops_by_op_per_device": rec.flops_by_op(),
             "bytes_per_device": rec.bytes_accessed,
+            "bytes_by_op_per_device": rec.bytes_by_op(),
             "collective_bytes_per_device": coll,
             "collective_bytes_corrected": dict(coll),
             "collective_calls_per_device": rec.calls()}
@@ -260,33 +258,16 @@ def measure_cell(cfg, shape, mesh, *, device: str = "cuda", **cell) -> dict:
             "compile_s": round(t_step, 2), **counts_of(rec), "memory": mem}
 
 
-def recurrent_steps(cfg, shape, accum: int) -> int:
-    """The eager steps of the recurrence a rank runs in one step of the
-    cell: the port's Mamba and RG-LRU layers step each of a sequence's
-    tokens in turn in a prefill or a training step (forward, recompute and
-    backward: 3 passes), once in a decode step."""
-    from ..models.blocks import layer_kinds
-    from .shapes import case_of
-    sc = case_of(shape)
-    n = sum(k in RECURRENT for k in layer_kinds(cfg))
-    if sc.kind == "decode":
-        return n
-    return n * sc.seq * (3 * accum if sc.kind == "train" else 1)
-
-
 def run_cell(arch: str, shape: str, multi_pod: bool, *, remat_policy="full",
              accum=None, fsdp=None, step_mode="gspmd", verbose=True,
              moe_overrides=None, device: str = "cuda"):
     """The record of one cell of the full config ``arch`` on the
-    production mesh (module docstring), or the reference's skip.  A cell
-    whose step runs more than ``RECURRENT_STEPS`` eager steps of a
-    recurrence (:func:`recurrent_steps`: the train and prefill cells of
-    the recurrent archs) is skipped with the count as its reason."""
+    production mesh (module docstring), or the reference's skip."""
     from ..configs import get_config
     from ..core.env import resolve_device
     from .accounting import cell_cost
     from .mesh import PRODUCTION, fake_world, make_production_mesh
-    from .shapes import SHAPES, cell_enabled, default_accum
+    from .shapes import SHAPES, cell_enabled
 
     cfg = get_config(arch)
     if moe_overrides and cfg.moe is not None:
@@ -299,14 +280,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, remat_policy="full",
     resolve_device(device)
     dims, names = PRODUCTION[bool(multi_pod)]
     chips = math.prod(dims)
-    steps = recurrent_steps(cfg, shape, accum or default_accum(
-        cfg, shape, dict(zip(names, dims))))
-    if steps > RECURRENT_STEPS:
-        return {"arch": arch, "shape": shape, "mesh": mesh_name,
-                "status": "skipped",
-                "reason": f"{steps} eager recurrence steps a rank (the "
-                f"port's Mamba/RG-LRU layers step token by token; over "
-                f"{RECURRENT_STEPS} the fake step takes hours)"}
     with fake_world(chips, like="nccl" if device == "cuda" else "gloo"):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
         got = measure_cell(cfg, shape, mesh, device=device,

@@ -3,16 +3,20 @@
 
 The prefill runs the reference's chunks (``chunk=256``): each chunk's
 ``dA``/``dBu`` (``(B, L, d_inner, d_state)`` f32) are made for that chunk
-alone, and the recurrence is stepped in order in f32 where the reference
-runs an associative scan, so a state differs from the reference's by f32
-rounding only.  Each step reads its output from the state it has just
-made, so no ``(B, L, d_inner, d_state)`` tensor of states is kept.
-Decode is the O(1) step.  ``A_log``, ``D`` and ``dt_bias`` are f32, as the
-reference uses them; the matrices and the conv are held in the model's
-dtype (bf16 to serve, f32 to train) and cast to bf16 at each use.
-Training runs :func:`mamba_apply` under autograd, which keeps each step's
-``(B, d_inner, d_state)`` state for the backward pass; no op writes in
-place.
+alone and scanned from the carried state by ``repro::linear_scan``
+(``kernels/linear_scan``) over ``d_inner * d_state`` channels: on the card
+one launch of the Hopper kernel a chunk (sequential in f32, so a state
+differs from the reference's by f32 rounding only), on the CPU the
+reference's associative scan in torch ops.  The chunk's states are read
+by ``C`` and dropped; only the last is carried, so no ``(B, S, d_inner,
+d_state)`` tensor exists and live memory is O(chunk), as in the
+reference.  Decode is the O(1) step.  ``A_log``, ``D`` and ``dt_bias``
+are f32, as the reference uses them; the matrices and the conv are held
+in the model's dtype (bf16 to serve, f32 to train) and cast to bf16 at
+each use.
+Training runs :func:`mamba_apply` under autograd; the scan's backward
+is the same scan run in reverse (``kernels/linear_scan/ops.py``), and it
+keeps each chunk's ``dA`` and states for it.  No op writes in place.
 
 Under tensor parallelism (``distributed/tensor_parallel.py``) ``d_inner``
 is split over the model group: ``in_proj`` is column-parallel (a rank
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import tensor_parallel as tpar
+from ..kernels.linear_scan import linear_scan
 from .layers import (BF16, F32, dense_init, depthwise_conv, param, silu,
                      softplus)
 
@@ -99,6 +104,20 @@ def _read(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bdn,bn->bd", h, c)
 
 
+def _scan_chunk(state: torch.Tensor, da: torch.Tensor, dbu: torch.Tensor,
+                cm: torch.Tensor):
+    """The reference's ``_scan_chunk``: ``state (B, di, N)`` and one
+    chunk's ``dA``/``dBu`` ``(B, L, di, N)`` and ``C`` ``(B, L, N)`` ->
+    (the state after the chunk, ``y (B, L, di)``), the recurrence scanned
+    over ``di * N`` channels."""
+    b, length, di, n = da.shape
+    h = linear_scan(da.reshape(b, length, di * n),
+                    dbu.reshape(b, length, di * n),
+                    state.reshape(b, di * n)).view(b, length, di, n)
+    # a clone, not a view that would keep the chunk's states alive
+    return h[:, -1].clone(), torch.einsum("bldn,bln->bld", h, cm)
+
+
 def _conv_silu(win: torch.Tensor, p, length: int) -> torch.Tensor:
     conv = depthwise_conv(win, p.conv_w.to(BF16),
                           tpar.local_of(p, "conv_b").to(BF16), length)
@@ -126,11 +145,9 @@ def mamba_mix(p, u_raw: torch.Tensor, z: torch.Tensor, cfg, *,
     uc = u.reshape(b, nch, ch, di)
     ys = []
     for c in range(nch):
-        da, dbu, cm = _ssm_inputs(p, uc[:, c], cfg)
-        for t in range(ch):
-            state = da[:, t] * state + dbu[:, t]
-            ys.append(_read(state, cm[:, t]))
-    return _finish(p, torch.stack(ys, dim=1), u, z), state
+        state, y = _scan_chunk(state, *_ssm_inputs(p, uc[:, c], cfg))
+        ys.append(y)
+    return _finish(p, torch.cat(ys, dim=1), u, z), state
 
 
 def mamba_apply(p, x: torch.Tensor, cfg, *, chunk: int = 256, state=None,

@@ -11,10 +11,14 @@ conv taps and the conv bias are held in the model's dtype (bf16 to serve,
 f32 to train) and cast to bf16 at each use, as the reference casts them.
 
 The prefill runs the reference's chunks (``chunk=256``, ``nch = max(1, S //
-chunk)``); within a chunk the recurrence is stepped in order in f32 where
-the reference runs an associative scan, so a state differs from the
-reference's by f32 rounding only.  Decode is the O(1) step.  Training
-runs :func:`rglru_apply` under autograd; no op writes in place.
+chunk)``); each chunk's gates are made for that chunk alone and its
+recurrence is scanned from the carried state by ``repro::linear_scan``
+(``kernels/linear_scan``) over the ``W`` channels: on the card one launch
+of the Hopper kernel a chunk (sequential in f32, so a state differs from
+the reference's by f32 rounding only), on the CPU the reference's
+associative scan in torch ops.  Decode is the O(1) step.  Training runs
+:func:`rglru_apply` under autograd (the scan's backward is the same scan
+run in reverse); no op writes in place.
 
 Under tensor parallelism (``distributed/tensor_parallel.py``) the width
 ``W`` is split over the model group: ``in_proj`` is column-parallel (a
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import tensor_parallel as tpar
+from ..kernels.linear_scan import linear_scan
 from .layers import (BF16, F32, dense_init, depthwise_conv, param,
                      softplus)
 
@@ -87,6 +92,14 @@ def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return a, gated
 
 
+def _scan_chunk(state: torch.Tensor, a: torch.Tensor, gated: torch.Tensor):
+    """One chunk of the reference's outer scan: ``state (B, W)`` and the
+    chunk's ``a``/gated input ``(B, L, W)`` -> (the state after the chunk,
+    the states ``h (B, L, W)``)."""
+    h = linear_scan(a, gated, state)
+    return h[:, -1], h
+
+
 def _out(p, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     y = h.to(BF16) * F.gelu(g.to(F32), approximate="tanh").to(BF16)
     return tpar.row_parallel(y, p.out_proj, getattr(p, "mg", None))
@@ -106,11 +119,10 @@ def rglru_mix(p, u_raw: torch.Tensor, g: torch.Tensor, cfg, *,
     uc = u.reshape(b, nch, ch, w)
     hs = []
     for c in range(nch):
-        a, gated = _gates(p, uc[:, c])
-        for t in range(ch):
-            state = a[:, t] * state + gated[:, t]
-            hs.append(state)
-    return _out(p, torch.stack(hs, dim=1), g), state
+        state, h = _scan_chunk(state, *_gates(p, uc[:, c]))
+        hs.append(h)
+    # a clone, not a view that would keep the last chunk's states alive
+    return _out(p, torch.cat(hs, dim=1), g), state.clone()
 
 
 def in_proj(p, x: torch.Tensor):

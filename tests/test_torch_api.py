@@ -1,7 +1,8 @@
 """The port's public surface held against the JAX package's on the CPU:
 the ``CSR`` row accessors, every name of ``repro.core.__all__`` (but the
 jax shim), ``tune=`` at every entry point, the small pieces ported with
-them (``read_csr``, ``csr_to_dense``, ``LoaderEngine``, ``generate``), and
+them (``read_csr``, ``csr_to_dense``, ``LoaderEngine``, ``generate``), the
+pinned divergence of ``convert_to_csr`` on an unknown method or engine, and
 an import check: the serving modules, the host engines and baselines and
 the scripts load neither jax nor the JAX package.
 """
@@ -152,6 +153,39 @@ def test_read_csr_and_dense_match_reference(tmp_path):
                           jcore.csr_to_dense(jcore.open_graph(
                               path, engine="device",
                               num_vertices=v).csr(rows=(3, 9))))
+
+
+def test_convert_to_csr_refuses_what_the_reference_takes_another_way():
+    """An unknown ``method`` or ``engine``: the port raises ``ValueError``
+    (nothing falls back quietly), where the reference builds ``csr_np``
+    for any method under ``engine="numpy"`` and takes its jax path for an
+    unknown engine.  A pinned divergence, on a 3-edge list."""
+    from repro.core.build import csr_np as jcsr_np
+    from repro.core.types import EdgeList as JEdgeList
+    from repro_torch.core.types import EdgeList
+    src = np.array([0, 2, 1], np.int32)
+    dst = np.array([1, 0, 2], np.int32)
+    el = EdgeList(torch.from_numpy(src), torch.from_numpy(dst), None, 3, 3)
+    for kw in ({"method": "bogus"}, {"method": "bogus", "engine": "numpy"}):
+        with pytest.raises(ValueError, match="unknown method 'bogus'"):
+            core.convert_to_csr(el, **kw)
+    with pytest.raises(ValueError,
+                       match="unknown convert_to_csr engine 'bogus'"):
+        core.convert_to_csr(el, engine="bogus")
+    jel = JEdgeList(src, dst, None, np.int32(3), 3)
+    want = jcsr_np(src, dst, None, 3)
+    got = jcore.convert_to_csr(jel, method="bogus", engine="numpy")
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    np.testing.assert_array_equal(got.targets, want.targets)
+    jax_path = jcore.convert_to_csr(jel, engine="jax")
+    got = jcore.convert_to_csr(jel, engine="bogus")
+    np.testing.assert_array_equal(np.asarray(got.offsets),
+                                  np.asarray(jax_path.offsets))
+    np.testing.assert_array_equal(np.asarray(got.targets),
+                                  np.asarray(jax_path.targets))
+    np.testing.assert_array_equal(np.asarray(got.offsets), want.offsets)
+    with pytest.raises(ValueError, match="unknown method"):
+        jcore.convert_to_csr(jel, method="bogus", engine="bogus")
 
 
 def test_loader_engine_protocol():

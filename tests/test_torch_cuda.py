@@ -1301,3 +1301,99 @@ def test_convert_to_csr_numpy_of_a_card_edge_list(cuda_device, weighted_text,
     assert sum(kernels.LAUNCHES.values()) == 0
     assert got.offsets.is_cuda and got.targets.is_cuda and got.weights.is_cuda
     _same_csr(got, convert_to_csr(el.to("cpu"), method=method))
+
+
+# ---- the recurrences' chunked scan ------------------------------------------
+# the kernel steps each channel's recurrence in order and the plain version
+# combines in jax's tree order: f32 rounding in another order, states of a
+# few units here, so 1e-5 relative and absolute (the CPU tests' F64_TOL);
+# against the same sequential loop in torch ops on the card, bitwise
+SCAN_TOL = 1e-5
+
+
+def _scan_inputs(g, steps, channels, zero_h0):
+    a = torch.rand((2, steps, channels), generator=g) * 0.5 + 0.5
+    b = torch.randn((2, steps, channels), generator=g)
+    h0 = (torch.zeros((2, channels)) if zero_h0 else
+          torch.randn((2, channels), generator=g))
+    return a, b, h0
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_linear_scan_kernel_matches_plain_and_the_loop(cuda_device, reverse):
+    """T in {1, 7, 256, 300}; 2 x C threads below one block of 256 and
+    across several; a zero and a random h0: one launch a call."""
+    g = torch.Generator().manual_seed(0)
+    for steps in (1, 7, 256, 300):
+        for channels in (5, 100, 1000):
+            for zero_h0 in (True, False):
+                a, b, h0 = _scan_inputs(g, steps, channels, zero_h0)
+                on = [t.to(cuda_device) for t in (a, b, h0)]
+                kernels.reset_launches()
+                got = kernels.linear_scan(*on, reverse=reverse)
+                assert kernels.LAUNCHES["linear_scan"] == 1
+                want = kernels.linear_scan_ref(a, b, h0, reverse)
+                torch.testing.assert_close(got.cpu(), want, rtol=SCAN_TOL,
+                                           atol=SCAN_TOL)
+                loop = kernels.linear_scan_loop(*on, reverse=reverse)
+                assert torch.equal(got, loop), (steps, channels, zero_h0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_linear_scan_gradients_on_the_card(cuda_device, reverse):
+    """The op's backward (the kernel reversed, one more launch) against
+    autograd through the plain version on the CPU."""
+    g = torch.Generator().manual_seed(1)
+    a, b, h0 = _scan_inputs(g, 300, 130, False)
+    gh = torch.randn(a.shape, generator=g)
+    grads = []
+    for dev, fn in ((cuda_device, kernels.linear_scan),
+                    ("cpu", kernels.linear_scan_ref)):
+        xs = [t.to(dev).requires_grad_() for t in (a, b, h0)]
+        kernels.reset_launches()
+        (fn(*xs, reverse=reverse) * gh.to(dev)).sum().backward()
+        grads.append([x.grad.cpu() for x in xs])
+        if dev != "cpu":
+            assert kernels.LAUNCHES["linear_scan"] == 2
+    for got, want in zip(*grads):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= SCAN_TOL * scale
+
+
+def test_linear_scan_refuses_what_the_kernel_cannot_run(cuda_device):
+    a = torch.rand((1, 4, 3), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.linear_scan(a, a, torch.zeros((1, 3), dtype=torch.float64,
+                                              device=cuda_device))
+    kernels.reset_launches()
+    empty = torch.empty((2, 0, 3), device=cuda_device)
+    assert kernels.linear_scan(empty, empty).shape == (2, 0, 3)
+    assert kernels.LAUNCHES["linear_scan"] == 0
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_recurrent_prefill_on_the_card_launches_the_scan(cuda_device, arch):
+    """The reduced arch's prefill over 512 tokens (2 chunks): 2 launches a
+    recurrent layer; the logits and every cache leaf against the CPU run
+    of the same weights within ``COMPILED_TOL``, as the serving kinds'."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.blocks import layer_kinds
+    cfg = reduced_config(arch)
+    cpu = init_params(cfg, 3, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    want = forward_prefill(cpu, {"tokens": toks}, cfg, 512)
+    kernels.reset_launches()
+    got = forward_prefill(card, {"tokens": toks.to(cuda_device)}, cfg, 512)
+    layers = sum(k in ("mamba", "rglru") for k in layer_kinds(cfg))
+    assert kernels.LAUNCHES["linear_scan"] == 2 * layers
+    tol = torch_lm.COMPILED_TOL
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want[0].float().numpy(), rtol=tol, atol=tol)
+    for c, wc in zip(got[1], want[1]):
+        for k in c:
+            np.testing.assert_allclose(c[k].float().cpu().numpy(),
+                                       wc[k].float().numpy(), rtol=tol,
+                                       atol=tol, err_msg=k)

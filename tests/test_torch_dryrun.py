@@ -23,11 +23,12 @@
   key the reference's record has; the analytic terms, ``model_flops``,
   the parameter counts, ``tokens`` and ``meta`` are the reference's
   ``cell_cost``, ``default_accum`` and config numbers; a full-attention
-  arch's ``long_500k`` is skipped with the reference's reason, a
-  recurrent arch's train and prefill cells with their count of eager
-  recurrence steps; the
+  arch's ``long_500k`` is skipped with the reference's reason; the
   reference's ``benchmarks/roofline.py`` reads the record (its constants
   are a TPU's: no number of it is kept).
+* The recurrent archs' train and prefill cells run their chunked scan: a
+  reduced cell of three chunks counts ``repro.linear_scan``'s FLOPs (2 an
+  element and step) and bytes accessed for every chunk, layer and pass.
 * ``main`` writes the per-cell files and ``summary.json`` and returns 0,
   or 1 where a cell failed; ``--jobs 2`` runs the cells in worker
   processes.
@@ -324,22 +325,39 @@ def test_long_500k_of_a_full_attention_arch_is_skipped(arch):
                        "status": "skipped", "reason": dryrun.SKIP_REASON}
 
 
-@pytest.mark.parametrize("arch,shape,steps", [
-    ("recurrentgemma-2b", "train_4k", 18 * 4096 * 3 * 8),
-    ("recurrentgemma-2b", "prefill_32k", 18 * 32768),
-    ("falcon-mamba-7b", "train_4k", 64 * 4096 * 3 * 16),
-    ("falcon-mamba-7b", "prefill_32k", 64 * 32768)])
-def test_a_cell_of_token_by_token_recurrences_is_skipped(arch, shape, steps):
-    """The recurrent archs' train and prefill cells step each token of the
-    sequence eagerly in every recurrent layer (18 RG-LRU layers of 26, 64
-    Mamba layers; forward, recompute and backward in a training step at
-    ``default_accum``'s 8 and 16): skipped, the count the reason; their
-    decode cells run."""
-    rec = dryrun.run_cell(arch, shape, False, device="cpu")
-    assert rec["status"] == "skipped"
-    assert rec["reason"].startswith(f"{steps} eager recurrence steps")
-    assert dryrun.recurrent_steps(configs.get_config(arch), "decode_32k",
-                                  1) < dryrun.RECURRENT_STEPS
+@pytest.mark.parametrize("arch,shape", [
+    ("recurrentgemma-2b", "train_4k"), ("recurrentgemma-2b", "prefill_32k"),
+    ("falcon-mamba-7b", "train_4k"), ("falcon-mamba-7b", "prefill_32k")])
+def test_a_recurrent_cell_runs_its_chunked_scan(world, arch, shape):
+    """The recurrent archs' train and prefill cells run (the port's layers
+    once stepped each token eagerly, and the dry run skipped them).  The
+    reduced arch at this cell's kind, 768 tokens (3 chunks of 256) and 4
+    rows on a fake ``(2, 2)`` world: every recurrent layer scans each
+    chunk of its rank's 2 rows over its local channels once a pass
+    (forward; at ``remat="full"`` also the recompute and the reversed
+    scan of the backward), 2 FLOPs an element and step, and reads ``a``,
+    ``b`` and ``h0`` and writes ``h`` once (f32)."""
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models.blocks import layer_kinds
+    world(4)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    cfg = configs.reduced_config(arch)
+    kind = jshapes.SHAPES[shape].kind
+    rec = dryrun.measure_cell(cfg, ShapeCase(shape, 768, 4, kind), mesh,
+                              device="cpu",
+                              **({"accum": 1} if kind == "train" else {}))
+    channels = (cfg.lru_width // 2 if arch.startswith("recurrent")
+                else cfg.d_inner // 2 * cfg.ssm.d_state)
+    layers = sum(k in ("rglru", "mamba") for k in layer_kinds(cfg))
+    calls = layers * 3 * (3 if kind == "train" else 1)
+    rows, steps = 2, 256
+    assert rec["flops_by_op_per_device"]["repro.linear_scan"] == \
+        calls * 2 * rows * steps * channels
+    assert rec["bytes_by_op_per_device"]["repro.linear_scan"] == \
+        calls * 4 * (3 * rows * steps * channels + rows * channels)
+    assert rec["flops_per_device"] > rec["flops_by_op_per_device"][
+        "repro.linear_scan"] > 0
+    assert rec["memory"]["temp_gb"] > 0
 
 
 # ---- main ------------------------------------------------------------------------

@@ -5,9 +5,10 @@ carried over.
 
 The layers' bf16 outputs are held at ``TOL`` against the reference run op
 by op and compiled.  Their f32 states are held to the reference run op by
-op at ``STATE_TOL``, relative and absolute: the port steps each chunk's
-recurrence in order where the reference runs an associative scan, so a
-state differs by f32 rounding only (512 steps included).  The compiled
+op at ``STATE_TOL``, relative and absolute: on the CPU the port scans each
+chunk with ``repro::linear_scan``'s plain version, the reference's
+associative scan in torch ops (on the card the kernel steps it in order),
+so a state differs by f32 rounding at most (512 steps included).  The compiled
 reference keeps the bf16 outputs of mamba's ``x_proj``/``dt_proj``
 products in f32 (XLA's excess precision), which moves its states by up to
 2e-4 relative, so against it the states are held at ``TOL``.  A prefill of
