@@ -24,7 +24,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import faults
+from . import faults, tracing
 
 NEWLINE = 10
 
@@ -145,9 +145,14 @@ class StagingArena:
     def __init__(self, nbytes: int, slots: int = 2, pin: bool = False):
         self._pin = bool(pin)
         n = max(int(nbytes), 1)
-        self._bufs = [self._alloc(n) for _ in range(max(int(slots), 2))]
+        self._bufs = [self._new(n) for _ in range(max(int(slots), 2))]
         self._fences: List[Optional[object]] = [None] * len(self._bufs)
         self._lock = threading.Lock()
+
+    def _new(self, n: int) -> torch.Tensor:
+        if self._pin:
+            tracing.count("pinned_bytes_allocated", n)
+        return self._alloc(n)
 
     def _alloc(self, n: int) -> torch.Tensor:
         return torch.full((n,), NEWLINE, dtype=torch.uint8,
@@ -157,9 +162,10 @@ class StagingArena:
         with self._lock:
             fence, self._fences[k] = self._fences[k], None
         if fence is not None:
-            fence.synchronize()
+            with tracing.span("gvel.stage.fence"):
+                fence.synchronize()
         if self._bufs[k].numel() < nbytes:
-            self._bufs[k] = self._alloc(nbytes)
+            self._bufs[k] = self._new(nbytes)
         return self._bufs[k].numpy()[:nbytes]
 
     def slot(self, i: int) -> "_Slot":

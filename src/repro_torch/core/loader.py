@@ -34,6 +34,11 @@ packed device accumulators and hands them to the rank-based CSR builders:
      count, shrinks the buffers to a power-of-two prefix, and builds the
      CSR on the card (``build.csr_staged`` by default).
 
+Under a running ``torch.profiler`` each step is a span of :mod:`.tracing`
+(``gvel.setup``; a ``gvel.batch`` a batch holding ``gvel.wait``,
+``gvel.h2d`` and ``gvel.parse``; the prefetch thread's ``gvel.stage``;
+``gvel.sync`` and ``gvel.build``) with the load's counters.
+
 The host engines (:mod:`.edgelist`) parse on the CPU and, for ``csr()``,
 build there too (``csr_convert_engine``), as the paper and the reference
 do; the product moves to its device once, at the end.  A host engine runs
@@ -54,7 +59,7 @@ from typing import (Any, Callable, Dict, Optional, Protocol, Tuple,
 import numpy as np
 import torch
 
-from . import build, faults
+from . import build, faults, tracing
 from .blocks import StagingArena, flat_len, owned_range, plan_blocks
 from .env import resolve_device
 from .parse import make_accumulators, parse_accumulate
@@ -265,14 +270,8 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
     edge_cap = plan.edge_cap
     nspan = max(block_hi - block_lo, 0)
     num_batches = -(-nspan // batch_blocks)
-    acc_src, acc_dst, acc_w, total = make_accumulators(
-        cap, weighted=weighted, device=device)
-    if num_batches == 0:
-        return acc_src, acc_dst, acc_w, total
     cuda = device.type == "cuda"
-    span_bytes = flat_len(min(batch_blocks, nspan), plan)
-    arena = StagingArena(span_bytes, pin=cuda)
-    feed = _DeviceFeed(span_bytes, device) if cuda else None
+    at = tracing.here()         # the prefetch thread records into this load
     placed = 0                  # slots the windows so far may have used
 
     def batch_ids(i: int) -> np.ndarray:
@@ -282,10 +281,29 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
     def stage(i: int) -> np.ndarray:
         ids = batch_ids(i)
         slot = arena.slot(i)
-        return faults.call_with_retries(
-            lambda: source.stage(plan, ids, arena=slot, check_lines=True),
-            describe=f"{describe}: stage blocks "
-                     f"[{int(ids[0])}, {int(ids[-1]) + 1})")
+        with tracing.span("gvel.stage", at):
+            flat = faults.call_with_retries(
+                lambda: source.stage(plan, ids, arena=slot, check_lines=True),
+                describe=f"{describe}: stage blocks "
+                         f"[{int(ids[0])}, {int(ids[-1]) + 1})")
+            tracing.count("bytes_staged", flat.nbytes)
+        return flat
+
+    def staged(i: int, fut) -> np.ndarray:
+        """Batch ``i`` from the prefetch thread, within the watchdog."""
+        try:
+            return fut.result(timeout=faults.WATCHDOG_S)
+        except _FutTimeout:
+            faults._count("stage_timeouts")
+            ids = batch_ids(i)
+            lo_b = int(ids[0]) * plan.beta
+            hi_b = min((int(ids[-1]) + 1) * plan.beta, plan.file_len)
+            raise faults.StageTimeout(
+                f"{describe}: staging of byte span [{lo_b}, {hi_b}) "
+                f"(batch {i + 1}/{num_batches}) produced nothing "
+                f"within the {faults.WATCHDOG_S:.1f}s watchdog "
+                f"budget (REPRO_WATCHDOG_S); reader is stuck"
+            ) from None
 
     def consume(i: int, flat: np.ndarray) -> None:
         nonlocal acc_src, acc_dst, acc_w, total, placed
@@ -295,45 +313,49 @@ def _parse_span(source, plan, block_lo: int, block_hi: int, *,
             raise AssertionError(f"batch {i} window [{placed}, "
                                  f"{placed + edge_bound}) exceeds {cap}")
         placed += edge_bound
-        span = torch.from_numpy(flat)
-        if cuda:
-            span, copied = feed.put(i, span)
-            arena.fence(i, copied)
-        bufs = span.as_strided((nb, plan.buf_len), (plan.beta, 1))
-        acc_src, acc_dst, acc_w, total = parse_accumulate(
-            acc_src, acc_dst, acc_w, total, bufs, os_, oe,
-            weighted=weighted, base=base, edge_bound=edge_bound)
-        if cuda:
-            feed.done(i)
+        with tracing.span("gvel.h2d"):
+            span = torch.from_numpy(flat)
+            if cuda:
+                span, copied = feed.put(i, span)
+                arena.fence(i, copied)
+        with tracing.span("gvel.parse"):
+            bufs = span.as_strided((nb, plan.buf_len), (plan.beta, 1))
+            acc_src, acc_dst, acc_w, total = parse_accumulate(
+                acc_src, acc_dst, acc_w, total, bufs, os_, oe,
+                weighted=weighted, base=base, edge_bound=edge_bound)
+            if cuda:
+                feed.done(i)
 
-    if not prefetch:
-        for i in range(num_batches):
-            consume(i, stage(i))
-        return acc_src, acc_dst, acc_w, total
-    # not a with-block: a stuck staging thread is abandoned
-    # (shutdown(wait=False)), never joined
-    pool = ThreadPoolExecutor(1, thread_name_prefix="loader-prefetch")
+    pool = None
     try:
-        fut = pool.submit(stage, 0)
+        with tracing.span("gvel.setup"):
+            acc_src, acc_dst, acc_w, total = make_accumulators(
+                cap, weighted=weighted, device=device)
+            if num_batches == 0:
+                return acc_src, acc_dst, acc_w, total
+            span_bytes = flat_len(min(batch_blocks, nspan), plan)
+            arena = StagingArena(span_bytes, pin=cuda)
+            feed = _DeviceFeed(span_bytes, device) if cuda else None
+            if prefetch:
+                # not a with-block: a stuck staging thread is abandoned
+                # (shutdown(wait=False)), never joined
+                pool = ThreadPoolExecutor(
+                    1, thread_name_prefix="loader-prefetch")
+                fut = pool.submit(stage, 0)
         for i in range(num_batches):
-            try:
-                flat = fut.result(timeout=faults.WATCHDOG_S)
-            except _FutTimeout:
-                faults._count("stage_timeouts")
-                ids = batch_ids(i)
-                lo_b = int(ids[0]) * plan.beta
-                hi_b = min((int(ids[-1]) + 1) * plan.beta, plan.file_len)
-                raise faults.StageTimeout(
-                    f"{describe}: staging of byte span [{lo_b}, {hi_b}) "
-                    f"(batch {i + 1}/{num_batches}) produced nothing "
-                    f"within the {faults.WATCHDOG_S:.1f}s watchdog "
-                    f"budget (REPRO_WATCHDOG_S); reader is stuck"
-                ) from None
-            if i + 1 < num_batches:
-                fut = pool.submit(stage, i + 1)     # double buffer
-            consume(i, flat)
+            with tracing.span("gvel.batch"):
+                if pool is None:
+                    flat = stage(i)
+                else:
+                    with tracing.span("gvel.wait"):
+                        flat = staged(i, fut)
+                    if i + 1 < num_batches:
+                        fut = pool.submit(stage, i + 1)     # double buffer
+                consume(i, flat)
+        tracing.count("batches", num_batches)
     finally:
-        pool.shutdown(wait=False, cancel_futures=True)
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
     return acc_src, acc_dst, acc_w, total
 
 
@@ -346,12 +368,13 @@ def _stream_edges(path: str, *, weighted: bool, base: int, offset: int,
     that cross a block boundary raise ``ValueError``.  A framed file
     forces ``beta`` to its frame size."""
     from .codecs import open_block_source
-    source, forced_beta = open_block_source(path, offset)
-    if forced_beta is not None and forced_beta > overlap:
-        beta = forced_beta          # one frame per block
-    plan = plan_blocks(source.length, beta=beta, overlap=overlap)
-    cap = plan.num_blocks * plan.edge_cap
-    _guard_int32_cap(path, cap)
+    with tracing.span("gvel.setup"):
+        source, forced_beta = open_block_source(path, offset)
+        if forced_beta is not None and forced_beta > overlap:
+            beta = forced_beta          # one frame per block
+        plan = plan_blocks(source.length, beta=beta, overlap=overlap)
+        cap = plan.num_blocks * plan.edge_cap
+        _guard_int32_cap(path, cap)
     edges = _parse_span(source, plan, 0, plan.num_blocks, weighted=weighted,
                         base=base, batch_blocks=batch_blocks, cap=cap,
                         device=device,
@@ -363,12 +386,19 @@ def _stream_edges(path: str, *, weighted: bool, base: int, offset: int,
 def _device_num_vertices(src: torch.Tensor, dst: torch.Tensor) -> int:
     """max id + 1 over the packed buffers (-1 padding never wins, and an
     empty buffer counts as -1)."""
-    m = torch.full((), -1, dtype=src.dtype, device=src.device)
-    if src.numel():
-        m = torch.maximum(m, src.max())
-    if dst.numel():
-        m = torch.maximum(m, dst.max())
-    return int(m) + 1
+    with tracing.span("gvel.sync"):
+        m = torch.full((), -1, dtype=src.dtype, device=src.device)
+        if src.numel():
+            m = torch.maximum(m, src.max())
+        if dst.numel():
+            m = torch.maximum(m, dst.max())
+        return int(m) + 1
+
+
+def _edge_count(total: torch.Tensor) -> int:
+    """The accumulators' running total on the host (a sync)."""
+    with tracing.span("gvel.sync"):
+        return int(total)
 
 
 class _StreamingEngine:
@@ -396,7 +426,7 @@ class _StreamingEngine:
         (src, dst, w, total), _ = self.stream(
             path, weighted=weighted, base=base, offset=offset,
             device=device, **kw)
-        n = int(total)
+        n = _edge_count(total)
         if num_vertices is None:
             num_vertices = _device_num_vertices(src, dst)
         return EdgeList(src[:n], dst[:n], w[:n] if weighted else None, n,
@@ -494,20 +524,22 @@ def read_csr_via(path: str, opts: LoadOptions, *,
                 num_vertices = eng.num_vertices_hint(path)
             (src, dst, w, total), _cap = eng.stream(
                 path, **opts.stream_kwargs())
-            n = int(total)
+            n = _edge_count(total)
             if num_vertices is None:
                 num_vertices = _device_num_vertices(src, dst) if n else 0
-            # padding is all at the tail: a pow-2 prefix keeps every edge
-            # and bounds the sort at 2n; an exact-length buffer is left alone
-            cap2 = 1 << max(n - 1, 1).bit_length()
-            if cap2 < src.shape[0]:
-                src, dst = src[:cap2], dst[:cap2]
-                w = w[:cap2] if weighted else None
-            offsets, targets, ww = build.build_csr(
-                src, dst, w, num_vertices, method=method, rho=rho,
-                bin_bits=bin_bits, weighted=weighted)
-            return CSR(offsets.to(torch.int64), targets[:n],
-                       ww[:n] if weighted else None, num_vertices)
+            with tracing.span("gvel.build"):
+                # padding is all at the tail: a pow-2 prefix keeps every
+                # edge and bounds the sort at 2n; an exact-length buffer is
+                # left alone
+                cap2 = 1 << max(n - 1, 1).bit_length()
+                if cap2 < src.shape[0]:
+                    src, dst = src[:cap2], dst[:cap2]
+                    w = w[:cap2] if weighted else None
+                offsets, targets, ww = build.build_csr(
+                    src, dst, w, num_vertices, method=method, rho=rho,
+                    bin_bits=bin_bits, weighted=weighted)
+                return CSR(offsets.to(torch.int64), targets[:n],
+                           ww[:n] if weighted else None, num_vertices)
     from .csr import convert_to_csr
     el = (fallback_edgelist() if fallback_edgelist is not None
           else read_edgelist_via(path, opts))

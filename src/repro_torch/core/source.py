@@ -48,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from . import tracing
 from .env import resolve_device
 from .faults import fault_plan
 from .loader import (DEFAULT_CSR_ENGINE, DEFAULT_EDGELIST_ENGINE, LoadOptions,
@@ -162,28 +163,32 @@ class GraphSource:
     (``src.csr() is src.csr()``).  The handle never re-sniffs the file."""
 
     def __init__(self, path: str, opts: LoadOptions, *, validate: bool = True):
-        self.path = str(path)
-        fmt, ckind = _detect(self.path, opts.offset)
-        if fmt == FORMAT_GVEL:
-            # a text parser pointed at a binary snapshot would decode garbage
-            opts = opts.replace(engine="snapshot")
-        self.options = opts.replace(device=resolve_device(opts.device))
-        self.format = fmt
-        self._ckind = ckind                   # "gzip" | "framed" | None
-        self._info: Optional[SourceInfo] = None
-        self._el: Optional[EdgeList] = None
-        self._el_engine: Optional[str] = None
-        self._csrs: Dict[Tuple[str, int, Optional[int]], CSR] = {}
-        self._sharded_csrs: Dict[Tuple[Any, str, int, str, Optional[int]],
-                                 CSR] = {}
-        self._mtx_hdr = None
-        self._gvel_peek = None                # (version, flags, V, E, entries)
-        self._framed_hdr = None               # codecs.FramedInfo
-        self._snap = None                     # pinned lazy Snapshot (gvel)
-        # cold builds run once per handle, whichever thread asks first
-        self._build_lock = threading.RLock()
-        if validate:
-            self._validate()
+        # recorded while a profiler runs: this open and the products' builds
+        self._trace = tracing.begin()
+        with tracing.request(self._trace, "gvel.open"):
+            self.path = str(path)
+            fmt, ckind = _detect(self.path, opts.offset)
+            if fmt == FORMAT_GVEL:
+                # a text parser pointed at a binary snapshot would decode
+                # garbage
+                opts = opts.replace(engine="snapshot")
+            self.options = opts.replace(device=resolve_device(opts.device))
+            self.format = fmt
+            self._ckind = ckind               # "gzip" | "framed" | None
+            self._info: Optional[SourceInfo] = None
+            self._el: Optional[EdgeList] = None
+            self._el_engine: Optional[str] = None
+            self._csrs: Dict[Tuple[str, int, Optional[int]], CSR] = {}
+            self._sharded_csrs: Dict[Tuple[Any, str, int, str,
+                                           Optional[int]], CSR] = {}
+            self._mtx_hdr = None
+            self._gvel_peek = None            # (version, flags, V, E, entries)
+            self._framed_hdr = None           # codecs.FramedInfo
+            self._snap = None                 # pinned lazy Snapshot (gvel)
+            # cold builds run once per handle, whichever thread asks first
+            self._build_lock = threading.RLock()
+            if validate:
+                self._validate()
 
     def __repr__(self) -> str:
         codec = f", codec={self._ckind}" if self._ckind else ""
@@ -308,10 +313,18 @@ class GraphSource:
             return f"framed-{self._framed_info().codec.name}"
         return self._ckind                    # "gzip" or None
 
+    def _request(self, name: str):
+        """The root span of a product's cold build (:mod:`.tracing`)."""
+        load = tracing.begin(self._trace)
+        if load is not None:
+            self._trace = load
+        return tracing.request(load, name)
+
     def edgelist(self) -> EdgeList:
         """The graph as an :class:`EdgeList` on the source's device."""
         if self._el is None:
-            with self._build_lock, fault_plan(self.options.faults):
+            with self._build_lock, fault_plan(self.options.faults), \
+                    self._request("gvel.edgelist"):
                 if self._el is None:
                     opts = self._opts_for("edgelist")
                     if self.format == FORMAT_MTX:
@@ -327,8 +340,9 @@ class GraphSource:
         was queued on this thread's current stream, and a memoized product
         is read by other threads on their own streams."""
         dev = self.options.device
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+        with tracing.span("gvel.complete"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         return product
 
     def _build_method(self, method: Optional[str]) -> str:
@@ -354,7 +368,8 @@ class GraphSource:
         key = (method, rho, bin_bits)
         csr = self._csrs.get(key)
         if csr is None:
-            with self._build_lock, fault_plan(self.options.faults):
+            with self._build_lock, fault_plan(self.options.faults), \
+                    self._request("gvel.csr"):
                 csr = self._csrs.get(key)
                 if csr is None:
                     csr = self._complete(self._build_csr(method, rho,
