@@ -324,8 +324,13 @@ Phases (any failure exits non-zero):
    (``library_device_ms`` likewise for the library call; see
    ``TRACE_LOSSES``).  The
    histogram on both of its inputs, per load: the ``staged`` build's
-   sorted partitions in one 2-D call and the stream-order ids of
-   ``global`` and ``binned`` in one 1-D call;
+   sorted (partition, source) keys over rho x V bins and the stream-order
+   ids of ``global`` and ``binned`` over V, one call each;
+   ``staged_merge`` on the ``staged`` build's sorted pairs and table,
+   bitwise its plain version and the main path's targets, beside the
+   whole build's device ms by kernel (its pair sort among them), its
+   launches, and its peak above the accumulators it sorts in (bounded by
+   12 B an edge and (8 rho + 12) B a vertex);
    ``parse_accumulate`` at one main-path batch against its plain path;
    ``parse_blocks`` (the parse kernel plus the per-block compaction) at
    the same batch against its CPU run; ``neighbor_gather`` on both of its
@@ -370,7 +375,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 MAIN_SCALE, SMALL_SCALE, EDGE_FACTOR = 22, 18, 16
 FRAMED_SCALE, MTX_SCALE = 20, 18   # phase 3c's framed text and MTX file
 RHO = 4                            # csr_staged's partitions (the default)
-LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram")
+LOAD_KERNELS = ("parse_accumulate", "exclusive_scan", "degree_histogram",
+                "staged_merge")
 GATHER_IDS, GATHER_WIDTH = 1 << 20, 128   # width: the reference's default
 NUM_WALKS, WALK_LENGTH = 65536, 81        # 80 steps (node2vec's walk length)
 
@@ -577,6 +583,32 @@ def device_ms(torch, fn, calls: int = 20) -> float:
             f"device_ms: the profiler kept every record of only "
             f"{len(whole)} of {calls} calls")
     return sum(whole) / len(whole) / 1e3
+
+
+def device_ms_by_name(torch, fn, calls: int = 3) -> dict:
+    """Device ms a call of ``fn`` by kernel (memset, copy) name, over
+    ``calls`` traced calls, largest first; only calls whose records were
+    all kept count (at least one must be)."""
+    fn()
+    with traced(torch) as prof:
+        for _ in range(calls):
+            fn()
+    launches, records = card_records(prof)
+    per = len(launches) // calls
+    require(per > 0 and per * calls == len(launches),
+            f"device_ms_by_name: {len(launches)} launches in {calls} calls "
+            f"alike")
+    by_name, whole = {}, 0
+    for i in range(calls):
+        run = [records.get(e.id) for e in launches[i * per:(i + 1) * per]]
+        if all(r is not None for r in run):
+            whole += 1
+            for r in run:
+                by_name[r.name] = by_name.get(r.name, 0.0) + (
+                    r.time_range.end - r.time_range.start) / 1e3
+    require(whole > 0, "device_ms_by_name: no call kept every record")
+    return {k: v / whole for k, v in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])}
 
 
 def timed(torch, fn, iters: int = 50) -> dict:
@@ -828,8 +860,10 @@ def drive(torch, repro_torch, kernels, path, method, weighted, oracle,
     launches = dict(kernels.LAUNCHES, parse_blocks=parse.CALLS["parse_blocks"])
     require(csr.targets.is_cuda and csr.offsets.dtype == torch.int64,
             f"{what}: CSR on the card, int64 offsets")
-    require(min(launches[k] for k in LOAD_KERNELS) > 0,
-            f"{what}: every kernel of the load launched ({launches})")
+    require(min(launches[k] for k in LOAD_KERNELS if k != "staged_merge")
+            > 0 and launches["staged_merge"] == (method == "staged"),
+            f"{what}: every kernel of the load launched, the merge once "
+            f"and only in a staged build ({launches})")
     check_csr(csr, oracle, weighted, what)
     row = {"run": what, "method": method, "seconds": seconds,
            "edges": num_edges, "edges_per_s": num_edges / seconds,
@@ -5193,51 +5227,73 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
               f"launches = its calls in the staged scale-22 load"))
     del acc
 
-    # the build's inputs: the shrunk source buffer and its degrees
+    # the build's inputs: the stream's accumulators as the loader hands
+    # them over, and a copy of their n edges
+    from repro_torch.core import build
     (src, dst, _w, total), _cap = repro_torch.open_graph(path22).stream()
     n = int(total)
-    cap2 = 1 << max(n - 1, 1).bit_length()
-    src2, dst2 = src[:cap2].contiguous(), dst[:cap2].contiguous()
-    del src, dst
+    src_n, dst_n = src[:n].clone(), dst[:n].clone()
+    # the staged build as the loader runs it, in the accumulators: its peak
+    # above them, its launches, bitwise the main path's CSR
+    csr = consumers["csr"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    offsets, targets, _ = build.csr_staged(src, dst, None, v22, rho=RHO,
+                                           num_edges=n, donate=True)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    build_launches = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    require(torch.equal(offsets.long(), csr.offsets)
+            and torch.equal(targets, csr.targets),
+            "csr_staged in the accumulators: bitwise the main path's CSR")
+    require(build_launches == {"degree_histogram": 1, "exclusive_scan": 1,
+                               "staged_merge": 1},
+            f"csr_staged: one histogram, scan and merge ({build_launches})")
+    # the design's peak: 12 B an edge and (8 rho + 12) B a vertex
+    build_peak_bound = 12 * n + (8 * RHO + 12) * v22
+    require(build_peak <= build_peak_bound,
+            f"csr_staged: {build_peak} B above the accumulators, over "
+            f"{build_peak_bound}")
+    del src, dst, offsets, targets
+    # the merge's inputs: the build's sorted (partition, source) keys and
+    # values and its table
+    offsets, skeys, svals, delta = build.staged_pairs(src_n, dst_n, None,
+                                                      v22, rho=RHO)
     # the histogram's two inputs on the path, each with its launches and
-    # times per load: `staged` (the default) counts rho sorted partitions in
-    # one 2-D launch; `global` and `binned` count the ids in stream order in
-    # one 1-D launch.  The library call is one torch.bincount per row.
-    key = torch.where(src2 >= 0, src2, v22)
-    require(cap2 % RHO == 0, "degree_histogram: partitions of equal size")
-    skey = torch.sort(key.reshape(RHO, cap2 // RHO), dim=1,
-                      stable=True).values
-    inputs = {"staged": skey, "global": key}
-
-    def bincount_rows(x):
-        return torch.stack([torch.bincount(r, minlength=v22 + 1)[:v22]
-                            for r in x.reshape(-1, x.shape[-1])])
-    fns = {"ms": lambda x: kernels.degree_histogram(x, num_vertices=v22),
-           "plain_ms": lambda x: kernels.degree_histogram_ref(
-               x, num_vertices=v22),
-           "library_ms": bincount_rows}
+    # times per load: `staged` (the default) counts the sorted (partition,
+    # source) keys over rho*V bins in one launch; `global` and `binned`
+    # count the ids in stream order over V bins in one launch.  The library
+    # call is one torch.bincount.
+    key = torch.where(src_n >= 0, src_n, v22)
+    inputs = {"staged": (skeys, RHO * v22), "global": (key, v22)}
     iters = {"ms": 20, "plain_ms": 5, "library_ms": 5}
     hist = {}
-    for method, x in inputs.items():
-        got, want, library = (f(x) for f in fns.values())
+    for method, (x, bins) in inputs.items():
+        fns = {"ms": lambda x=x, b=bins: kernels.degree_histogram(
+                   x, num_vertices=b),
+               "plain_ms": lambda x=x, b=bins: kernels.degree_histogram_ref(
+                   x, num_vertices=b),
+               "library_ms": lambda x=x, b=bins: torch.bincount(
+                   x, minlength=b + 1)[:b]}
+        got, want, library = (f() for f in fns.values())
         require(torch.equal(got, want),
                 f"degree_histogram (main shape, {method})")
-        require(torch.equal(library.int().reshape(got.shape), got),
+        require(torch.equal(library.int(), got),
                 f"degree_histogram vs torch.bincount ({method})")
         del got, want, library
-        hist[method] = {k: cuda_ms(torch, lambda f=f: f(x), iters[k])
+        hist[method] = {k: cuda_ms(torch, f, iters[k])
                         for k, f in fns.items()}
         for k in ("ms", "library_ms"):
-            f = fns[k]
             hist[method][k.replace("ms", "device_ms")] = device_ms(
-                torch, lambda f=f: f(x), 5)
-        nrows = 1 if x.dim() == 1 else x.shape[0]
+                torch, fns[k], 5)
         hist[method].update(
             launches=runs[method]["degree_histogram"],
-            bound_ms=bound_ms(4 * x.numel() + 4 * v22 * nrows),
-            shape=f"{tuple(x.shape)} int32 "
-                  f"{'sorted rows' if method == 'staged' else 'stream order'}"
-                  f" -> {tuple(x.shape[:-1]) + (v22,)}")
+            bound_ms=bound_ms(4 * x.numel() + 4 * bins),
+            shape=f"({x.numel()},) int32 "
+                  + ("sorted (partition, source) keys" if method == "staged"
+                     else "stream order") + f" -> ({bins},)")
     staged = hist["staged"]
     rows.append(dict(
         name="degree_histogram", route="cuda",
@@ -5247,6 +5303,8 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         global_and_binned=hist["global"]))
 
     deg = kernels.degree_histogram(key, num_vertices=v22)
+    require(torch.equal(kernels.csr_offsets(deg), offsets),
+            "the staged build's offsets: the stream-order degrees' scan")
     got = kernels.exclusive_scan(deg)
     want = kernels.exclusive_scan_ref(deg)
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -5272,8 +5330,40 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
         library_device_ms=device_ms(torch, library), bitwise=True,
         shape=f"N={v22} int32 -> N+1"))
 
+    # staged_merge on the build's sorted pairs and table, bitwise its plain
+    # version and the main path's targets; beside it the device ms of the
+    # whole staged build by kernel, its pair sort (CUB's) among them
+    got, _ = kernels.staged_merge(skeys, svals, delta)
+    want, _ = kernels.staged_merge_ref(skeys, svals, delta)
+    require(torch.equal(got, want) and torch.equal(got, csr.targets),
+            "staged_merge (main shape): its plain version, the main path")
+    del got, want
+    by_kernel = device_ms_by_name(torch, lambda: build.csr_staged(
+        src_n, dst_n, None, v22, rho=RHO))
+    rows.append(dict(
+        name="staged_merge", route="cuda",
+        source="src/repro_torch/csrc/staged_merge.cu",
+        replaces="none: XLA ops of src/repro/core/build.py:102 csr_staged "
+                 "(rank searchsorted and gathers, base gather, select, "
+                 "scatter)",
+        launches=launches["staged_merge"], max_abs_err=0,
+        **timed(torch, lambda: kernels.staged_merge(skeys, svals, delta)),
+        plain_ms=cuda_ms(torch, lambda: kernels.staged_merge_ref(
+            skeys, svals, delta), 5, warmup=1),
+        # the keys and values read, the targets written, the table once
+        bound_ms=bound_ms(12 * n + 4 * delta.numel()), bound_by="bytes",
+        library_ms=None, bitwise=True,
+        build_device_ms=sum(by_kernel.values()),
+        build_by_kernel=by_kernel,
+        sort_device_ms=sum(ms for k, ms in by_kernel.items()
+                           if "RadixSort" in k),
+        build_launches=build_launches,
+        build_peak_above_accumulators_bytes=build_peak,
+        build_peak_bound_bytes=build_peak_bound,
+        shape=f"({n},) sorted int32 (partition, source) keys and targets, "
+              f"a ({RHO * v22},) int32 table -> ({n},) int32"))
+
     # neighbor_gather on the consumer path's two inputs
-    csr = consumers["csr"]
     gather = {}
     for name, ids in consumers["inputs"].items():
         nbrs, gdeg = kernels.neighbor_gather(ids, csr.offsets, csr.targets,
@@ -5317,7 +5407,7 @@ def phase_kernels(torch, repro_torch, kernels, path22, v22, runs, consumers,
     report["kernels"] = rows
     return {"bufs": bufs, "owned": (os_, oe), "edge_bound": bound,
             "deg": deg, "hist": inputs, "v": v22, "csr": csr,
-            "gather": consumers["inputs"], "build": (src2, dst2)}
+            "gather": consumers["inputs"], "build": (src_n, dst_n)}
 
 
 # linear_scan at the chunk shapes of the recurrent layers at full width:
@@ -5378,10 +5468,10 @@ def phase_scan_kernel(torch, kernels, report):
 def phase_parent(torch, kernels, parent_dir, inputs, report):
     """This tree's kernels against those of the checkout at ``parent_dir``,
     on the same inputs, timed in turns (parent, this, this, parent); both
-    must agree bitwise.  The histogram per load: on `staged`'s partitions
-    the parent's four 1-D calls against this tree's one 2-D call, and the
-    stream-order ids; the whole `staged` build on the scale-22 edges; the
-    gather on both of its inputs."""
+    must agree bitwise.  The histogram on both of its inputs (`staged`'s
+    sorted keys over rho*V bins, the stream-order ids over V); the whole
+    `staged` build on the scale-22 edges, with each side's device ms by
+    kernel; the gather on both of its inputs."""
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent_dir), "src", "repro_torch")
     spec = importlib.util.spec_from_file_location(
@@ -5397,7 +5487,7 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
     bufs, (os_, oe), bound = (inputs["bufs"], inputs["owned"],
                               inputs["edge_bound"])
     deg, v, csr = inputs["deg"], inputs["v"], inputs["csr"]
-    skey, key = inputs["hist"]["staged"], inputs["hist"]["global"]
+    hist = inputs["hist"]
     accs = {name: parse.make_accumulators(bound, weighted=False, device=dev)
             for name in ("parent", "this")}
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -5414,17 +5504,15 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
                 a[0], a[1], None, zero, bufs, os_, oe, weighted=False,
                 base=1, edge_bound=bound))(mod, accs[who])
             for who, mod in (("parent", pparse), ("this", parse))},
-        "degree_histogram_staged": {
-            "parent": lambda: [pkernels.degree_histogram(r, num_vertices=v)
-                               for r in skey],
-            "this": lambda: kernels.degree_histogram(skey, num_vertices=v)},
-        "degree_histogram_stream": {
-            who: (lambda mod: lambda: mod.degree_histogram(
-                key, num_vertices=v))(mod)
-            for who, mod in (("parent", pkernels), ("this", kernels))},
     }
-    # the whole staged build, which counts its partitions through the
-    # histogram (four 1-D calls and a stack in the parent, one 2-D call here)
+    for method, name in (("staged", "degree_histogram_staged"),
+                         ("global", "degree_histogram_stream")):
+        fns[name] = {
+            who: (lambda mod, x, b: lambda: mod.degree_histogram(
+                x, num_vertices=b))(mod, *hist[method])
+            for who, mod in (("parent", pkernels), ("this", kernels))}
+    # the whole staged build (the parent's sorts and scatters in PyTorch,
+    # this tree's pair sort and merge)
     from repro_torch.core import build
     from repro_torch_parent.core import build as pbuild
     s2, d2 = inputs["build"]
@@ -5461,6 +5549,9 @@ def phase_parent(torch, kernels, parent_dir, inputs, report):
                            for k in ("ms", "device_ms")}
                      for who in ("parent", "this")}
         out[name]["turns"] = turns
+    out["csr_staged"]["by_kernel"] = {
+        who: device_ms_by_name(torch, fn)
+        for who, fn in fns["csr_staged"].items()}
     report["parent"] = out
     say(json.dumps({"parent": out}))
 
@@ -5509,9 +5600,8 @@ def phase_breakdown(torch, repro_torch, path22, report):
     require(int(parse_all()[3]) == n, "breakdown: parse alone edge count")
     del padded
 
-    cap2 = 1 << max(n - 1, 1).bit_length()
     v = int(torch.maximum(src.max(), dst.max())) + 1
-    s2, d2 = src[:cap2], dst[:cap2]
+    s2, d2 = src[:n], dst[:n]
     builds = {m: cuda_ms(torch, lambda m=m: getattr(build, f"csr_{m}")(
         s2, d2, None, v), 2, warmup=1) for m in ("staged", "global", "binned")}
     h2d_host = torch.empty(blocks.flat_len(bb, plan), dtype=torch.uint8,
@@ -5570,7 +5660,7 @@ def phase_profile(torch, repro_torch, path22, report):
             calls[e.key] = calls.get(e.key, 0) + e.count
     watched = ("parse_accumulate_kernel", "parse_bytes_kernel",
                "index_elementwise_kernel", "exclusive_scan_kernel",
-               "degree_histogram_kernel", "Memset")
+               "degree_histogram_kernel", "staged_merge_kernel", "Memset")
     row = {"wall_s": wall, "device_events": len(on_card),
            "calls_of": {w: sum(c for k, c in calls.items() if w in k)
                         for w in watched},

@@ -6,16 +6,17 @@ from a stable sort, so the scatters have disjoint destinations:
 
 * ``csr_global`` -- one global stable sort;
 * ``csr_staged`` -- GVEL's multi-stage build over rho contiguous edge
-  partitions, merged through per-partition bases;
+  partitions, merged through per-partition bases: int32 (partition, source)
+  keys and their values in one pair sort, then the ``staged_merge`` kernel;
 * ``csr_binned`` -- sort-free levels over ``bin_bits``-wide digits of the
   vertex id, each a value sort of unique packed int32 keys.
 
 In every builder the degree count goes through the ``degree_histogram``
 kernel and the offsets through the ``exclusive_scan`` kernel and its
 total; sorts, searchsorted and gathers are PyTorch ops, as the reference
-leaves them to XLA.  Padding is ``src == -1``.  Offsets are int32 (the
-device width); ``_check_offsets_width`` refuses edge counts that could
-wrap.
+leaves them to XLA (the staged build's pair sort is CUB's, on the card).
+Padding is ``src == -1``.  Offsets are int32 (the device width);
+``_check_offsets_width`` refuses edge counts that could wrap.
 
 The host builds are the reference's numpy code, copied as it is:
 ``csr_staged_np`` (rho partitions on a thread pool of ``num_workers``),
@@ -34,6 +35,7 @@ import torch
 
 from ..kernels.degree_histogram import degree_histogram
 from ..kernels.exclusive_scan import csr_offsets
+from ..kernels.staged_merge import sort_pairs, staged_merge
 from .types import CSR
 
 I32 = torch.int32
@@ -53,21 +55,6 @@ def _check_offsets_width(num_edges: int) -> None:
 
 def _ceil_log2(n: int) -> int:
     return max(int(n - 1).bit_length(), 0)
-
-
-def _rank_in_group(sorted_key: torch.Tensor, num_vertices: int) -> torch.Tensor:
-    """Rank of each sorted element within its equal-key run; works on the
-    last dimension of ``(..., E)`` keys."""
-    dev = sorted_key.device
-    if sorted_key.shape[-1] == 0:
-        return torch.zeros(sorted_key.shape, dtype=I32, device=dev)
-    ids = torch.arange(num_vertices + 1, dtype=I32, device=dev)
-    ids = ids.expand(*sorted_key.shape[:-1], num_vertices + 1).contiguous()
-    first = torch.searchsorted(sorted_key.contiguous(), ids, side="left",
-                               out_int32=True)
-    iota = torch.arange(sorted_key.shape[-1], dtype=I32, device=dev)
-    return iota - torch.gather(first, -1,
-                               sorted_key.clamp(0, num_vertices).long())
 
 
 def _scatter_drop(size: int, dest: torch.Tensor, values: torch.Tensor,
@@ -95,55 +82,114 @@ def csr_global(src: torch.Tensor, dst: torch.Tensor,
     return offsets, targets, w
 
 
+def _staged_scratch(buf: Optional[torch.Tensor], e: int, donate: bool,
+                    dev) -> torch.Tensor:
+    """``e`` int32 slots of scratch: past the edges of a donated buffer that
+    holds ``2e`` slots or more, else fresh."""
+    if donate and buf is not None and buf.shape[0] >= 2 * e:
+        return buf[e:2 * e].view(I32)
+    return torch.empty(e, dtype=I32, device=dev)
+
+
+def _merge_table(pdeg: torch.Tensor, offsets: torch.Tensor, rho: int,
+                 v: int) -> torch.Tensor:
+    """``delta[p*V + u] = offsets[u] + before[p][u] - run start of (p, u)``
+    (int32, flat) from the ``(rho*V,)`` partition degrees, which it
+    overwrites.  With the inclusive scans down the partitions (C0) and over
+    the flat keys (CF), ``before - start = (C0 - pdeg) - (CF - pdeg)``."""
+    table = torch.cumsum(pdeg.view(rho, v), 0, dtype=I32)
+    table -= pdeg.cumsum_(0).view(rho, v)
+    table += offsets[:-1]
+    return table.view(-1)
+
+
+def staged_pairs(src: torch.Tensor, dst: torch.Tensor,
+                 weights: Optional[torch.Tensor], num_vertices: int, *,
+                 rho: int = 4, weighted: bool = False,
+                 num_edges: Optional[int] = None, donate: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """``(offsets, sorted keys, sorted values, delta)``: all of
+    :func:`csr_staged` but its merge, over int32 ``src`` and ``dst``."""
+    e = src.shape[0] if num_edges is None else int(num_edges)
+    _check_offsets_width(e)
+    v = int(num_vertices)
+    dev = src.device
+    # the keys and their padding key rho*V fit int32 (and the sort 31 bits)
+    rho = max(1, min(int(rho), INT32_OFFSETS_LIMIT // max(v, 1)))
+    num_keys = rho * v
+    # one sync: with every id in [0, V) the keys need no select and no
+    # padding key, so the sort may take one bit fewer
+    clean = True
+    if e:
+        lo, hi = torch.stack(torch.aminmax(src[:e])).tolist()
+        clean = lo >= 0 and hi < v
+
+    # ---- stage 1: keys, one pair sort, the partitions' degrees ------------
+    keys = src[:e] if donate else torch.empty(e, dtype=I32, device=dev)
+    cuts = np.linspace(0, e, rho + 1).astype(np.int64).tolist()
+    pad = torch.full((), num_keys, dtype=I32, device=dev)
+    for p in range(rho):
+        s, k = src[cuts[p]:cuts[p + 1]], keys[cuts[p]:cuts[p + 1]]
+        if not clean:
+            torch.where((s >= 0) & (s < v), s + p * v, pad, out=k)
+        elif p or not donate:
+            torch.add(s, p * v, out=k)
+    keys_alt = _staged_scratch(src, e, donate, dev)
+    if weighted:
+        vals = _staged_scratch(dst, e, donate, dev)
+        torch.arange(e, dtype=I32, device=dev, out=vals)
+        vals_alt = _staged_scratch(weights, e, donate, dev)
+    else:
+        vals = dst[:e] if donate else dst[:e].to(I32, copy=True)
+        vals_alt = _staged_scratch(dst, e, donate, dev)
+    bits = max((num_keys - 1 if clean else num_keys).bit_length(), 1)
+    skeys, svals = sort_pairs(keys, vals, keys_alt, vals_alt, bits=bits)
+    del keys, vals, keys_alt, vals_alt
+    pdeg = degree_histogram(skeys, num_vertices=num_keys)       # (rho*V,)
+
+    # ---- stage 2: global offsets, the merge's table -----------------------
+    offsets = csr_offsets(torch.sum(pdeg.view(rho, v), dim=0, dtype=I32))
+    delta = _merge_table(pdeg, offsets, rho, v)
+    del pdeg
+    return offsets, skeys, svals, delta
+
+
 def csr_staged(src: torch.Tensor, dst: torch.Tensor,
                weights: Optional[torch.Tensor], num_vertices: int, *,
-               rho: int = 4, weighted: bool = False
+               rho: int = 4, weighted: bool = False,
+               num_edges: Optional[int] = None, donate: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """GVEL multi-stage build (Algorithm 2, rank-based).
+    """GVEL multi-stage build (Algorithm 2, rank-based), carried in int32.
 
-    Stage 1: rho contiguous partitions, each stably sorted by source; their
-             rho degree histograms in one launch (the reference's vmap).
-    Stage 2: partition degrees -> global offsets (scan) + per-partition
-             bases; edge destination = offsets[u] + (edges of u in earlier
-             partitions) + local rank.  Destinations are disjoint.
+    Stage 1: rho contiguous partitions, cut as ``csr_staged_np`` cuts them;
+             edge ``(u, v)`` of partition p gets the key ``p*V + u`` (``rho*V``
+             for padding and ids outside ``[0, V)``), and one stable radix
+             sort of (key, value) pairs over the keys' bits sorts every
+             partition by source at once; the value is the destination id,
+             or the edge's position when weights ride along.  The rho degree
+             histograms are one histogram of the sorted keys.
+    Stage 2: the summed degrees -> global offsets (scan); the table
+             ``delta = offsets[u] + before[p][u] - (start of (p, u)'s sorted
+             run)`` places the sorted element i at ``i + delta[key]``, so
+             the destinations are disjoint, and one merge writes them.
+
+    The product is ``num_edges`` targets (padding's slots -1, weight 0).
+    ``num_edges`` (default: all of ``src``) counts the edges at the front of
+    the buffers.  ``donate``: the caller hands the int32 buffers over, and
+    the sort runs in their storage (and in their tails past the edges, where
+    they hold twice the edges); otherwise the inputs stay untouched.
     """
-    _check_offsets_width(src.shape[0])
-    v = num_vertices
-    e = src.shape[0]
-    dev = src.device
-    pcap = -(-e // rho)
-    pad = rho * pcap - e
-    key = torch.where(src >= 0, src, v).to(I32)
-    if pad:
-        key = torch.cat([key, torch.full((pad,), v, dtype=I32, device=dev)])
-        dst = torch.cat([dst, torch.full((pad,), -1, dtype=I32, device=dev)])
-        if weighted:
-            weights = torch.cat([weights, weights.new_zeros(pad)])
-    key = key.reshape(rho, pcap)
-    dstp = dst.reshape(rho, pcap)
-
-    # ---- stage 1: partition-local sorts and degrees ----------------------
-    order = torch.argsort(key, dim=1, stable=True)
-    skey = torch.gather(key, 1, order)
-    sdst = torch.gather(dstp, 1, order)
-    pdeg = degree_histogram(skey, num_vertices=v)               # (rho, V)
-    rank = _rank_in_group(skey, v)
-
-    # ---- stage 2: global offsets + disjoint merge -------------------------
-    deg = torch.sum(pdeg, dim=0, dtype=I32)
-    offsets = csr_offsets(deg)
-    before = torch.cumsum(pdeg, dim=0, dtype=I32) - pdeg        # (rho, V)
-    base = offsets[:-1][None, :] + before
-    # one extra column keeps the gather in range for keys >= V, whose
-    # destinations are dropped below
-    base = torch.cat([base, base.new_zeros(rho, 1)], dim=1)
-    dest = torch.gather(base, 1, skey.clamp(0, v).long()) + rank
-    dest = torch.where(skey < v, dest, e).reshape(-1)
-    targets = _scatter_drop(e, dest, sdst.reshape(-1), -1)
-    w = None
+    src, dst = src.to(I32), dst.to(I32)
+    offsets, skeys, svals, delta = staged_pairs(
+        src, dst, weights, num_vertices, rho=rho, weighted=weighted,
+        num_edges=num_edges, donate=donate)
+    e = skeys.shape[0]
     if weighted:
-        sw = torch.gather(weights.reshape(rho, pcap), 1, order)
-        w = _scatter_drop(e, dest, sw.reshape(-1), 0.0)
+        targets, w = staged_merge(skeys, svals, delta, dst=dst[:e],
+                                  weights=weights[:e])
+    else:
+        targets, w = staged_merge(skeys, svals, delta)
     return offsets, targets, w
 
 
@@ -205,14 +251,21 @@ def csr_binned(src: torch.Tensor, dst: torch.Tensor,
 def build_csr(src: torch.Tensor, dst: torch.Tensor,
               weights: Optional[torch.Tensor], num_vertices: int, *,
               method: str = "staged", rho: int = 4,
-              bin_bits: Optional[int] = None, weighted: bool = False
+              bin_bits: Optional[int] = None, weighted: bool = False,
+              num_edges: Optional[int] = None, donate: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The build named by ``method`` (``global``/``staged``/``binned``)."""
-    if method == "global":
-        return csr_global(src, dst, weights, num_vertices, weighted=weighted)
+    """The build named by ``method`` (``global``/``staged``/``binned``) of
+    the first ``num_edges`` edges (default all); ``donate`` hands the
+    buffers to the staged build (:func:`csr_staged`)."""
     if method == "staged":
         return csr_staged(src, dst, weights, num_vertices, rho=rho,
-                          weighted=weighted)
+                          weighted=weighted, num_edges=num_edges,
+                          donate=donate)
+    if num_edges is not None:
+        src, dst = src[:num_edges], dst[:num_edges]
+        weights = weights[:num_edges] if weighted else None
+    if method == "global":
+        return csr_global(src, dst, weights, num_vertices, weighted=weighted)
     if method == "binned":
         return csr_binned(src, dst, weights, num_vertices, bin_bits=bin_bits,
                           weighted=weighted)

@@ -184,7 +184,9 @@ def build_local_csr(src: torch.Tensor, dst: torch.Tensor,
                     bin_bits: Optional[int] = None):
     """``(offsets, targets, weights)`` of the rows shard ``shard`` owns,
     from the edges it received: the ``staged`` or ``binned`` build over
-    local row ids (so the histogram and scan kernels launch)."""
+    local row ids (so the histogram and scan kernels launch).  The received
+    buffers are the exchange's own: the staged build sorts in ``dst`` and
+    ``w`` (and in the local ids' buffer), so it overwrites them."""
     local = torch.where(src >= 0, src - shard * rows_per_shard, -1)
     if method == "binned":
         return build.csr_binned(local, dst, w, rows_per_shard,
@@ -193,7 +195,7 @@ def build_local_csr(src: torch.Tensor, dst: torch.Tensor,
         raise ValueError(f"sharded build method must be 'staged' or "
                          f"'binned', got {method!r}")
     return build.csr_staged(local, dst, w, rows_per_shard, rho=rho,
-                            weighted=w is not None)
+                            weighted=w is not None, donate=True)
 
 
 def load_csr_sharded(mesh, axis: str, src: torch.Tensor, dst: torch.Tensor,

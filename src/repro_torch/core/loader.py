@@ -31,8 +31,8 @@ packed device accumulators and hands them to the rank-based CSR builders:
      (``parse.parse_accumulate``), with no host sync; the short tail batch
      is parsed at its own size;
   4. the host syncs once for the edge count and once for the vertex
-     count, shrinks the buffers to a power-of-two prefix, and builds the
-     CSR on the card (``build.csr_staged`` by default).
+     count and builds the CSR of the first n slots on the card
+     (``build.csr_staged`` by default, which sorts in the accumulators).
 
 Under a running ``torch.profiler`` each step is a span of :mod:`.tracing`
 (``gvel.setup``; a ``gvel.batch`` a batch holding ``gvel.wait``,
@@ -504,7 +504,7 @@ def read_csr_via(path: str, opts: LoadOptions, *,
     """File -> CSR on the load's device through ``opts.engine``, trying in
     order: the engine's ``read_csr_prebuilt`` (no parse, no build), its
     ``stream`` + the build (one sync for the edge count, one for the vertex
-    count unless known, a power-of-two shrink of over-allocated buffers),
+    count unless known; the build reads exactly the n edges),
     then an EdgeList (``fallback_edgelist``, or a read) + ``convert_to_csr``
     by ``csr_convert_engine`` (a host engine builds on the host), the CSR
     moved to the load's device.  A symmetric load takes the last route.
@@ -528,18 +528,15 @@ def read_csr_via(path: str, opts: LoadOptions, *,
             if num_vertices is None:
                 num_vertices = _device_num_vertices(src, dst) if n else 0
             with tracing.span("gvel.build"):
-                # padding is all at the tail: a pow-2 prefix keeps every
-                # edge and bounds the sort at 2n; an exact-length buffer is
-                # left alone
-                cap2 = 1 << max(n - 1, 1).bit_length()
-                if cap2 < src.shape[0]:
-                    src, dst = src[:cap2], dst[:cap2]
-                    w = w[:cap2] if weighted else None
+                # the edges are the accumulators' first n slots, and the
+                # accumulators are this load's own: the build may sort in
+                # them (donate)
                 offsets, targets, ww = build.build_csr(
                     src, dst, w, num_vertices, method=method, rho=rho,
-                    bin_bits=bin_bits, weighted=weighted)
-                return CSR(offsets.to(torch.int64), targets[:n],
-                           ww[:n] if weighted else None, num_vertices)
+                    bin_bits=bin_bits, weighted=weighted, num_edges=n,
+                    donate=True)
+                return CSR(offsets.to(torch.int64), targets,
+                           ww if weighted else None, num_vertices)
     from .csr import convert_to_csr
     el = (fallback_edgelist() if fallback_edgelist is not None
           else read_edgelist_via(path, opts))

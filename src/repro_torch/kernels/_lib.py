@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", *ARCH_FLAGS, "-Xcompiler", "-fPIC",
 MIN_CAPABILITY = (9, 0)
 
 LAUNCHES = {"parse_bytes": 0, "parse_accumulate": 0, "exclusive_scan": 0,
-            "degree_histogram": 0, "neighbor_gather": 0, "linear_scan": 0}
+            "degree_histogram": 0, "neighbor_gather": 0, "linear_scan": 0,
+            "staged_merge": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -54,6 +55,11 @@ _SIGNATURES = {
                                _I64, _P], ctypes.c_int),
     "repro_linear_scan": ([_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
                           ctypes.c_int),
+    "repro_sort_pairs_scratch_bytes": ([_I64, _I64], _I64),
+    "repro_sort_pairs": ([_P, _P, _P, _P, _I64, _I64, _P, _I64,
+                          ctypes.POINTER(ctypes.c_int32), _P], ctypes.c_int),
+    "repro_staged_merge": ([_P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+                           ctypes.c_int),
     "repro_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

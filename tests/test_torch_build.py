@@ -6,9 +6,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_inputs as ti
 from repro.core import build as jbuild
 from repro.core import degrees as jdegrees
-from repro_torch.core import build, degrees
+from repro_torch.core import EdgeList, build, convert_to_csr, degrees
 
 
 def _edges(case, rng):
@@ -28,10 +29,16 @@ def _edges(case, rng):
     elif case == "v1":
         v, e = 1, 25
         src = np.zeros(e, np.int64)
+    elif case == "tiny":                          # fewer edges than rho
+        v, e = 5, 3
+        src = rng.integers(0, v, e)
+    elif case == "hub":                           # half the edges on one id
+        v, e = 40, 400
+        src = np.where(rng.random(e) < 0.5, 11, rng.integers(0, v, e))
     else:
         raise ValueError(case)
     src = src.astype(np.int32)
-    if case in ("random", "skew"):
+    if case in ("random", "skew", "hub"):
         src[rng.random(e) < 0.2] = -1             # padding sprinkled in
         src = np.concatenate([src, np.full(7, -1, np.int32)])
         e = len(src)
@@ -41,7 +48,7 @@ def _edges(case, rng):
     return src, dst, w, v
 
 
-CASES = ["random", "skew", "empty", "padding_only", "v1"]
+CASES = ["random", "skew", "empty", "padding_only", "v1", "tiny", "hub"]
 
 
 def _check(got, want_offsets, want_targets, want_w, weighted, n_valid=None):
@@ -92,7 +99,7 @@ def test_binned_bin_widths_match_jax(bin_bits):
     _check(got, *want, True)
 
 
-@pytest.mark.parametrize("rho", [1, 3, 4, 8])
+@pytest.mark.parametrize("rho", [1, 3, 4, 7, 8])
 def test_staged_rho_matches_jax(rho):
     src, dst, w, v = _edges("skew", np.random.default_rng(rho))
     got, want = _call(build.csr_staged, jbuild.csr_staged, src, dst, w, v,
@@ -110,6 +117,64 @@ def test_ids_at_or_above_v_follow_the_reference():
                           getattr(jbuild, f"csr_{method}"), src, dst, w, 4,
                           True)
         _check(got, *want, True)
+
+
+@pytest.mark.parametrize("case", ti.STAGED_CASES)
+@pytest.mark.parametrize("rho", [1, 4, 7])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_staged_edge_shapes_match_jax_and_oracle(case, rho, weighted):
+    """Partitions cut unequally or left empty, padding, ids >= V, V = 1 and
+    a hub: bitwise the reference (padding's slots included) and, over the
+    edges with ids in [0, V), the oracle."""
+    src, dst, w, v = ti.staged_edges(case, rho)
+    got, want = _call(build.csr_staged, jbuild.csr_staged, src, dst, w, v,
+                      weighted, rho=rho)
+    _check(got, *want, weighted)
+    keep = (src >= 0) & (src < v)
+    oracle = jbuild.csr_np(src[keep], dst[keep], w[keep] if weighted
+                           else None, v)
+    _check(got, oracle.offsets, oracle.targets, oracle.weights, weighted,
+           n_valid=int(keep.sum()))
+    assert (got[1].numpy()[int(keep.sum()):] == -1).all()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("spare", [0, 1000, 4001])
+def test_staged_sorts_in_donated_buffers(weighted, spare):
+    """``donate``: the first ``num_edges`` slots are the edges, the sort may
+    use the slots past them (``spare`` >= the edges: enough for both of its
+    buffers), and the product is the undonated build's, bitwise."""
+    src, dst, w, v = ti.staged_edges("padding", 11)
+    want = build.csr_staged(torch.from_numpy(src), torch.from_numpy(dst),
+                            torch.from_numpy(w), v, weighted=weighted)
+
+    def grown(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.full(spare, 12345, a.dtype)]))
+
+    got = build.csr_staged(grown(src), grown(dst), grown(w), v,
+                           weighted=weighted, num_edges=len(src),
+                           donate=True)
+    assert got[1].shape == (len(src),)
+    _check(got, want[0].numpy(), want[1].numpy(),
+           want[2].numpy() if weighted else None, weighted)
+
+
+@pytest.mark.parametrize("method", ["global", "staged", "binned"])
+def test_convert_to_csr_leaves_the_edge_list_untouched(method):
+    src, dst, w, v = ti.staged_edges("hub", 5)
+    keep = src >= 0
+    el = EdgeList(torch.from_numpy(src[keep]), torch.from_numpy(dst[keep]),
+                  torch.from_numpy(w[keep]), int(keep.sum()), v)
+    before = [t.clone() for t in (el.src, el.dst, el.weights)]
+    got = convert_to_csr(el, method=method)
+    for t, b in zip((el.src, el.dst, el.weights), before):
+        assert torch.equal(t.view(torch.int32), b.view(torch.int32))
+    oracle = jbuild.csr_np(src[keep], dst[keep], w[keep], v)
+    assert np.array_equal(got.offsets.numpy(), oracle.offsets)
+    assert np.array_equal(got.targets.numpy(), oracle.targets)
+    assert np.array_equal(got.weights.numpy().view(np.int32),
+                          oracle.weights.view(np.int32))
 
 
 def test_offsets_width_guard(monkeypatch):

@@ -445,8 +445,158 @@ def test_csr_staged_launches_the_histogram_once(cuda_device):
         offsets, targets, _ = build.csr_staged(
             src.to(cuda_device), dst.to(cuda_device), None, 7000, rho=rho)
         assert kernels.LAUNCHES["degree_histogram"] == 1
+        assert kernels.LAUNCHES["exclusive_scan"] == 1
+        assert kernels.LAUNCHES["staged_merge"] == 1
         assert np.array_equal(offsets.cpu().numpy(), want.offsets)
         assert np.array_equal(targets.cpu().numpy(), want.targets)
+
+
+# ---- the staged build's pair sort and merge ---------------------------------
+
+
+@pytest.mark.parametrize("n,bits", [(1, 1), (4097, 9), ((1 << 20) + 3, 24),
+                                    ((1 << 20) + 3, 31), (1 << 22, 24)])
+def test_sort_pairs_on_the_card_matches_the_cpu(cuda_device, n, bits):
+    """CUB's pair sort against the plain version: keys with ties and bits
+    above ``bits``, values their positions (so stability shows)."""
+    rng = np.random.default_rng(n + bits)
+    keys = torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32))
+    keys[torch.from_numpy(rng.random(n) < 0.3)] = 5
+    vals = torch.arange(n, dtype=torch.int32)
+    want = kernels.sort_pairs_ref(keys.clone(), vals.clone(), keys, vals,
+                                  bits=bits)
+    card = [t.to(cuda_device) for t in (keys, vals, keys, vals)]
+    got = kernels.sort_pairs(*card, bits=bits)
+    assert all(g.data_ptr() in {c.data_ptr() for c in card} for g in got)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_staged_merge_on_the_card_matches_the_cpu(cuda_device, weighted,
+                                                  monkeypatch):
+    """The merge kernel against its plain version on a staged build's own
+    sorted pairs and table (padding, a hub, 2^20 + 5 edges)."""
+    from repro_torch.core import build
+    rng = np.random.default_rng(31)
+    e, v, rho = (1 << 20) + 5, 5000, 4
+    src = rng.integers(-1, v + 3, e).astype(np.int32)
+    src[rng.random(e) < 0.3] = 17
+    dst = rng.integers(0, v, e).astype(np.int32)
+    w = rng.normal(size=e).astype(np.float32)
+    calls = []
+    real = build.staged_merge
+    monkeypatch.setattr(build, "staged_merge", lambda *a, **kw: calls.append(
+        (a, kw)) or real(*a, **kw))
+    build.csr_staged(torch.from_numpy(src).to(cuda_device),
+                     torch.from_numpy(dst).to(cuda_device),
+                     torch.from_numpy(w).to(cuda_device), v, rho=rho,
+                     weighted=weighted)
+    (args, kw), = calls
+    kernels.reset_launches()
+    got = kernels.staged_merge(*args, **kw)
+    assert kernels.LAUNCHES["staged_merge"] == 1
+    want = kernels.staged_merge_ref(
+        *[t.cpu() for t in args],
+        **{k: None if t is None else t.cpu() for k, t in kw.items()})
+    assert torch.equal(got[0].cpu(), want[0])
+    if weighted:
+        assert torch.equal(got[1].cpu().view(torch.int32),
+                           want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ti.STAGED_CASES)
+@pytest.mark.parametrize("rho", [1, 4, 7])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_staged_on_the_card_matches_the_cpu(cuda_device, case, rho,
+                                                weighted):
+    """Bitwise the CPU build on every shape the CPU tests hold against the
+    reference; one histogram, one scan and one merge a build."""
+    from repro_torch.core import build
+    src, dst, w, v = ti.staged_edges(case, rho)
+    args = [torch.from_numpy(a) for a in (src, dst, w)]
+    if not weighted:
+        args[2] = None
+    want = build.csr_staged(*args, v, rho=rho, weighted=weighted)
+    kernels.reset_launches()
+    got = build.csr_staged(*[None if a is None else a.to(cuda_device)
+                             for a in args], v, rho=rho, weighted=weighted)
+    for g, t in zip(got, want):
+        assert _same(g, t)
+    assert kernels.LAUNCHES["degree_histogram"] == 1
+    assert kernels.LAUNCHES["exclusive_scan"] == 1
+    assert kernels.LAUNCHES["staged_merge"] == 1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("spare", [0, 1 << 20])
+def test_csr_staged_sorts_in_donated_card_buffers(cuda_device, weighted,
+                                                  spare):
+    """Donated buffers with no room past the edges, and with room for the
+    sort's second buffers there: the undonated product, bitwise."""
+    from repro_torch.core import build
+    src, dst, w, v = ti.staged_edges("padding", 3)
+    e = len(src)
+    want = build.csr_staged(*[torch.from_numpy(a).to(cuda_device)
+                              for a in (src, dst, w)], v, weighted=weighted)
+
+    def grown(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.full(spare, 7, a.dtype)])).to(cuda_device)
+
+    got = build.csr_staged(grown(src), grown(dst), grown(w), v,
+                           weighted=weighted, num_edges=e, donate=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if weighted:
+        assert torch.equal(got[2].view(torch.int32),
+                           want[2].view(torch.int32))
+
+
+def _rmat_file(tmp_path, scale):
+    from repro_torch.core.generate import rmat_edges
+    src, dst, v = rmat_edges(scale, 16, seed=scale)
+    path = str(tmp_path / f"rmat{scale}.el")
+    ti.write_text_fast(path, src, dst)
+    return path, src, dst
+
+
+def test_staged_load_of_an_rmat_file_matches_the_cpu(cuda_device, tmp_path):
+    """A scale-16 RMAT file through ``open_graph(...).csr(method="staged")``
+    on the card: the CPU load's CSR, bitwise, with one merge launch."""
+    path, _, _ = _rmat_file(tmp_path, 16)
+    kernels.reset_launches()
+    got = repro_torch.open_graph(path).csr(method="staged")
+    assert kernels.LAUNCHES["staged_merge"] == 1
+    assert kernels.LAUNCHES["degree_histogram"] == 1
+    assert kernels.LAUNCHES["exclusive_scan"] == 1
+    _same_csr(got, repro_torch.open_graph(path, device="cpu").csr(
+        method="staged"))
+
+
+def test_staged_load_peak_memory_stays_within_the_design(cuda_device,
+                                                         tmp_path):
+    """A scale-20 ``staged`` load's peak above what was allocated before it
+    stays within the accumulators, 12 B an edge (the targets, the sort's
+    scratch, the feed) and (8 rho + 12) B a vertex (the degree and merge
+    tables, the int32 offsets and their int64 copy): the sort runs in the
+    accumulators, and no rank, destination or int64 index array exists."""
+    import os
+    from repro_torch.core import loader
+    from repro_torch.core.blocks import plan_blocks
+    path, src, dst = _rmat_file(tmp_path, 20)
+    v = int(max(src.max(), dst.max())) + 1
+    plan = plan_blocks(os.path.getsize(path), beta=loader.DEFAULT_BETA,
+                       overlap=loader.DEFAULT_OVERLAP)
+    accumulators = 8 * plan.num_blocks * plan.edge_cap
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    got = repro_torch.open_graph(path).csr(method="staged")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert int(got.offsets[-1]) == len(src)
+    assert peak <= accumulators + 12 * len(src) + (8 * 4 + 12) * v, \
+        (peak, accumulators, len(src), v)
 
 
 @pytest.mark.parametrize("width", ti.GATHER_WIDTHS)
@@ -627,9 +777,12 @@ def test_convert_to_csr_and_save_on_the_card(cuda_device, weighted_text,
                        el.weights.to(cuda_device), el.num_edges,
                        el.num_vertices)
     kernels.reset_launches()
+    before = [t.clone() for t in (card_el.src, card_el.dst, card_el.weights)]
     got = convert_to_csr(card_el, method=method)
     assert kernels.LAUNCHES["degree_histogram"] > 0
     assert kernels.LAUNCHES["exclusive_scan"] > 0
+    for t, b in zip((card_el.src, card_el.dst, card_el.weights), before):
+        assert torch.equal(t.view(torch.int32), b.view(torch.int32))
     _same_csr(got, convert_to_csr(el, method=method))
     a, b = str(tmp_path / "card.gvel"), str(tmp_path / "cpu.gvel")
     out = repro_torch.open_graph(weighted_text, weighted=True).save(

@@ -96,9 +96,10 @@ def test_partitioned_degrees_in_one_call(rho, monkeypatch):
 
 @pytest.mark.parametrize("rho", [1, 3, 4, 8])
 def test_csr_staged_counts_all_partitions_in_one_call(rho, monkeypatch):
-    """``csr_staged`` makes one 2-D histogram call of ``(rho, pcap)`` and
-    stays bitwise against the reference on sorted-run sources with
-    padding."""
+    """``csr_staged`` counts its rho partitions in one histogram call, over
+    the sorted ``(partition, source)`` keys of all the edges and ``rho * V``
+    bins, and stays bitwise against the reference on sorted-run sources
+    with padding."""
     rng = np.random.default_rng(rho)
     src = ti.sorted_runs(3001, V, rho)
     rng.shuffle(src)
@@ -108,11 +109,12 @@ def test_csr_staged_counts_all_partitions_in_one_call(rho, monkeypatch):
     calls = []
     real = build.degree_histogram
     monkeypatch.setattr(build, "degree_histogram",
-                        lambda s, **kw: calls.append(s.shape) or real(s, **kw))
+                        lambda s, **kw: calls.append((tuple(s.shape), kw))
+                        or real(s, **kw))
     offsets, targets, weights = build.csr_staged(
         torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(w), V,
         rho=rho, weighted=True)
-    assert calls == [(rho, -(-len(src) // rho))]
+    assert calls == [((len(src),), {"num_vertices": rho * V})]
     j_off, j_tgt, j_w = jbuild.csr_staged(jnp.asarray(src), jnp.asarray(dst),
                                           jnp.asarray(w), V, rho=rho,
                                           weighted=True)

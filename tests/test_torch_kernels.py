@@ -76,6 +76,14 @@ def test_wrappers_refuse_wrong_input():
     with pytest.raises(ValueError):
         kernels.parse_bytes(torch.zeros(8, dtype=torch.uint8), 0, 8,
                             weighted=False, base=1)
+    four = [torch.zeros(4, dtype=torch.int32) for _ in range(4)]
+    with pytest.raises(ValueError):
+        kernels.sort_pairs(*four, bits=0)
+    with pytest.raises(ValueError):
+        kernels.sort_pairs(*four[:3], torch.zeros(3, dtype=torch.int32),
+                           bits=4)
+    with pytest.raises(ValueError):
+        kernels.staged_merge(*four[:3], dst=four[3])
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -85,4 +93,62 @@ def test_cpu_wrappers_do_not_count_launches():
                              num_vertices=3)
     kernels.parse_bytes(torch.full((1, 8), 10, dtype=torch.uint8), 0, 8,
                         weighted=False, base=1)
+    four = [torch.zeros(4, dtype=torch.int32) for _ in range(4)]
+    kernels.staged_merge(*kernels.sort_pairs(*four, bits=3), four[2])
     assert set(kernels.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("n,bits", [(0, 1), (1, 1), (500, 5), (3000, 24),
+                                    (3000, 31)])
+def test_sort_pairs_is_stable_over_the_low_bits(n, bits):
+    """Keys with bits above ``bits`` set and many ties: the pairs come out
+    ordered by the low bits, ties in input order (numpy's stable sort)."""
+    rng = np.random.default_rng(n + bits)
+    keys = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    keys[rng.random(n) < 0.5] = 3
+    vals = np.arange(n, dtype=np.int32)
+    order = np.argsort(keys & ((1 << bits) - 1), kind="stable")
+    got = kernels.sort_pairs(
+        torch.from_numpy(keys.copy()), torch.from_numpy(vals.copy()),
+        torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32),
+        bits=bits)
+    assert np.array_equal(got[0].numpy(), keys[order])
+    assert np.array_equal(got[1].numpy(), vals[order])
+
+
+@pytest.mark.parametrize("rho,v", [(1, 1), (3, 17), (4, 300)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_staged_merge_places_each_run(rho, v, weighted):
+    """Sorted ``(p*V + u)`` keys with padding keys, the table computed from
+    its definition in numpy, and the merge's targets against a stable sort
+    of the valid edges by source (the oracle's order)."""
+    rng = np.random.default_rng(rho * v)
+    e = 2000
+    part = np.sort(rng.integers(0, rho, e))
+    u = rng.integers(0, v, e)
+    keys = np.where(rng.random(e) < 0.1, rho * v, part * v + u)
+    order = np.argsort(keys, kind="stable")
+    dst = rng.integers(0, 1000, e).astype(np.int32)
+    w = rng.normal(size=e).astype(np.float32)
+    pdeg = np.bincount(keys[keys < rho * v], minlength=rho * v)
+    offsets = np.concatenate([[0], np.cumsum(pdeg.reshape(rho, v).sum(0))])
+    before = np.cumsum(pdeg.reshape(rho, v), 0) - pdeg.reshape(rho, v)
+    start = np.cumsum(pdeg) - pdeg
+    delta = (offsets[:-1] + before).reshape(-1) - start
+    skeys = torch.from_numpy(keys[order].astype(np.int32))
+    svals = torch.from_numpy((order if weighted else dst[order]).astype(
+        np.int32))
+    got = kernels.staged_merge(
+        skeys, svals, torch.from_numpy(delta.astype(np.int32)),
+        dst=torch.from_numpy(dst) if weighted else None,
+        weights=torch.from_numpy(w) if weighted else None)
+    valid = keys < rho * v
+    by_src = np.argsort(np.where(valid, u, v), kind="stable")[:valid.sum()]
+    n = int(valid.sum())
+    assert np.array_equal(got[0].numpy()[:n], dst[by_src])
+    assert (got[0].numpy()[n:] == -1).all()
+    if weighted:
+        assert np.array_equal(got[1].numpy()[:n], w[by_src])
+        assert (got[1].numpy()[n:] == 0).all()
+    else:
+        assert got[1] is None

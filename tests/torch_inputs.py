@@ -343,3 +343,70 @@ def mtx_expand(src, dst, w):
     keep = src != dst
     return (np.concatenate([src, dst[keep]]), np.concatenate([dst, src[keep]]),
             None if w is None else np.concatenate([w, w[keep]]))
+
+
+# ---------------------------------------------------------------------------
+# the staged build's edge shapes
+# ---------------------------------------------------------------------------
+
+STAGED_CASES = ("uneven", "tiny", "empty_partition", "padding", "above_v",
+                "v1", "hub")
+
+
+def staged_edges(case: str, seed: int):
+    """``(src, dst, w, V)`` (int32, int32, float32) for one shape the staged
+    build must cut and place: 4,001 edges (``e % rho != 0`` for rho 4 and
+    7), 3 (fewer than rho: empty partitions), a quarter of them padding in
+    one block (an empty partition at rho = 4), -1 padding sprinkled and at
+    the tail, ids at or above V among them, V = 1, or one hub holding half
+    the edges."""
+    rng = np.random.default_rng(seed)
+    v, e = 300, 4001
+    src = rng.integers(0, v, e)
+    if case == "tiny":
+        e, src = 3, src[:3]
+    elif case == "empty_partition":
+        src[e // 4:e // 2] = -1
+    elif case == "padding":
+        src[rng.random(e) < 0.3] = -1
+        src[-57:] = -1
+    elif case == "above_v":
+        above = rng.random(e) < 0.2
+        src[above] = rng.integers(v, 3 * v, int(above.sum()))
+        src[rng.random(e) < 0.1] = -1
+    elif case == "v1":
+        v = 1
+        src = np.where(rng.random(e) < 0.1, -1, 0)
+    elif case == "hub":
+        src[rng.random(e) < 0.5] = 7
+    elif case != "uneven":
+        raise ValueError(case)
+    src = src.astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    dst[src < 0] = -1
+    return src, dst, rng.normal(size=e).astype(np.float32), v
+
+
+def _digits(x: np.ndarray, width: int):
+    """Right-aligned decimal digits of non-negative ints, and a mask of the
+    significant ones."""
+    out = np.empty((len(x), width), np.uint8)
+    y = x.astype(np.int64)
+    for k in range(width - 1, -1, -1):
+        out[:, k] = 48 + y % 10
+        y //= 10
+    nd = 1 + sum((x >= 10 ** k).astype(np.int64) for k in range(1, width))
+    return out, np.arange(width)[None, :] >= (width - nd)[:, None]
+
+
+def write_text_fast(path, src, dst) -> None:
+    """1-based ``u v`` lines of large edge arrays, built in numpy."""
+    width = len(str(int(max(src.max(), dst.max())) + 1))
+    n = len(src)
+    sep = (np.full((n, 1), 32, np.uint8), np.ones((n, 1), bool))
+    end = (np.full((n, 1), 10, np.uint8), np.ones((n, 1), bool))
+    parts = [_digits(src + 1, width), sep, _digits(dst + 1, width), end]
+    mat = np.concatenate([p[0] for p in parts], axis=1)
+    keep = np.concatenate([p[1] for p in parts], axis=1)
+    with open(path, "wb") as f:
+        f.write(mat[keep].tobytes())
