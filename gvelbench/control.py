@@ -8,8 +8,9 @@ correct.  The benchmark's runs never run it.
 
 prints one JSON line a seed with the numbers compared, and exits 1 if the
 control passed on any seed.  The loads' CSRs get rows in reverse file
-order (an unstable build), the edge list comes grouped by source.  No card
-is needed: the control is host NumPy at the cell's own size.
+order (an unstable build), the edge list comes grouped by source, and the
+sharded CSR's ranks 0 and 1 hold each other's rows.  No card is needed:
+the control is host NumPy at the cell's own size.
 """
 import argparse
 import json
@@ -25,6 +26,9 @@ def control_result(graph: graphs.Graph, traffic: Dict) -> Dict:
     v = reference.vertex_count(g.src, g.dst)
     if traffic["product"] == "edgelist":
         got = reference.control_edges(g.src, g.dst, g.weights)
+    elif traffic["product"] == "csr_sharded":
+        got = reference.control_shards(g.src, g.dst, g.weights, v,
+                                       traffic["ranks"])
     else:
         got = reference.control_csr(g.src, g.dst, g.weights, v)
     return {"off_launches": 0, "checked": {0: got}}

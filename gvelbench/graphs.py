@@ -99,6 +99,30 @@ def format_lines(columns, widths) -> bytes:
     return mat[keep].tobytes()
 
 
+def _digits(x: np.ndarray) -> np.ndarray:
+    """Decimal digits of each non-negative int."""
+    x = x.astype(np.int64)
+    n = np.ones(len(x), np.int64)
+    top = int(x.max()) if len(x) else 0
+    k = 10
+    while k <= top:
+        n += x >= k
+        k *= 10
+    return n
+
+
+def line_lengths(graph: "Graph", cfg: Dict) -> np.ndarray:
+    """Bytes of each line :func:`make` writes for ``graph``, the newline
+    included."""
+    fields = [graph.src + cfg["base"], graph.dst + cfg["base"]]
+    if graph.weights is not None:
+        fields.append(graph.weights.astype(np.int64))
+    n = np.full(graph.num_edges, len(fields), np.int64)   # spaces, newline
+    for col in fields:
+        n += _digits(col)
+    return n
+
+
 class Graph:
     """A generated graph: 0-based int32 ``src``/``dst`` in file order and
     float32 ``weights`` or None."""

@@ -3,10 +3,12 @@ reference, and the result line.
 
 A cell names a configuration (``configs/<name>.json``: the graph and its
 generator) and a traffic mix (``traffic/<name>.json``: which product of
-the front door a load asks for).  Each load is a fresh
-``repro_torch.open_graph(path)`` handle, since a handle memoizes its
-products, and ends in ``torch.cuda.synchronize()``; loads run back to
-back, one client, a closed loop, on one card.
+the front door a load asks for, and on how many ``ranks``).  Each load is
+a fresh ``repro_torch.open_graph(path)`` handle, since a handle memoizes
+its products, and ends in ``torch.cuda.synchronize()``; loads run back to
+back, one client, a closed loop, on one card, or on one card a rank with
+every rank loading together (:mod:`.ranks`; the loads are rank 0's and the
+peak the fullest card's).
 
 The window runs without the profiler.  Its end-to-end metrics are the
 card's peak allocation over its loads, ``peak_device_gib``, and the
@@ -38,7 +40,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import graphs, reference, roofline, trace
+from . import graphs, reference, roofline, shards, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -95,15 +97,6 @@ def import_program():
     return repro_torch
 
 
-def parse_batches(file_bytes: int, cfg: Dict) -> int:
-    """Launches of the fused parse that a load makes: the batches of the
-    file's blocks under the configuration's streaming geometry
-    (``core/blocks.py``'s plan)."""
-    beta, per = cfg["geometry"]["beta"], cfg["geometry"]["batch_blocks"]
-    blocks = max(1, -(-file_bytes // beta))
-    return -(-blocks // per)
-
-
 # ---------------------------------------------------------------------------
 # one load through the front door
 # ---------------------------------------------------------------------------
@@ -112,11 +105,12 @@ class FrontDoor:
     """Callable: one load of the traffic's product, complete on return."""
 
     def __init__(self, torch, repro_torch, traffic: Dict, cfg: Dict,
-                 path: str, device):
+                 path: str, device, mesh=None):
         self.torch, self.rt = torch, repro_torch
+        self.traffic = traffic
         self.product = traffic["product"]
         self.method = traffic.get("method")
-        self.path, self.device = path, device
+        self.path, self.device, self.mesh = path, device, mesh
         self.weighted = cfg["weights"] != "none"
 
     def __call__(self):
@@ -126,6 +120,9 @@ class FrontDoor:
             out = g.csr(method=self.method)
         elif self.product == "edgelist":
             out = g.edgelist()
+        elif self.product == "csr_sharded":
+            out = g.csr_sharded(self.mesh, axis=self.traffic["axis"],
+                                rho=self.traffic["rho"], method=self.method)
         else:
             raise BenchError(f"unknown product {self.product!r}")
         if self.device.type == "cuda":
@@ -141,10 +138,13 @@ class FrontDoor:
                     "num_vertices": out.num_vertices}
         offsets = host(out.offsets)
         n = int(offsets[-1]) if len(offsets) else 0
-        return {"offsets": offsets, "targets": host(out.targets[:n]),
+        rows = {"offsets": offsets, "targets": host(out.targets[:n]),
                 "weights": None if out.weights is None
                 else host(out.weights[:n]),
                 "num_vertices": out.num_vertices}
+        if self.product == "csr_sharded":
+            rows["row_start"] = out.row_start
+        return rows
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +152,14 @@ class FrontDoor:
 # ---------------------------------------------------------------------------
 
 def run_loads(spec: Dict) -> Dict:
-    """Set-up's warm load, the window and the traced loads.  ``spec``:
-    ``path``, ``cfg``, ``traffic``, ``seconds``, ``trace``, ``checked``
-    (the index of the window's load to check besides the last),
-    ``device`` (``cuda`` | ``cpu``), ``patch`` (``module:function`` run
-    first; tests only)."""
+    """Set-up's warm load, the window and the traced loads, in this process
+    or, where ``spec`` has ``ranks``, as this process's rank of the world
+    (:mod:`.ranks`).  ``spec``: ``path``, ``cfg``, ``traffic``,
+    ``seconds``, ``trace``, ``checked`` (the index of the window's load to
+    check besides the last), ``device`` (``cuda`` | ``cpu``), ``patch``
+    (``module:function`` run first; tests only); a rank's also ``ranks``
+    and ``init``, the rendezvous file.  Rank 0 decides when the window
+    ends, and every rank copies the same loads' rows."""
     stamps = {"loads_start": time.monotonic()}
     if spec.get("patch"):
         mod, fn = spec["patch"].split(":")
@@ -165,21 +168,36 @@ def run_loads(spec: Dict) -> Dict:
     rt = import_program()
     from repro_torch.kernels import _lib
     cuda = spec["device"] == "cuda"
-    device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    d, rank, world = spec.get("ranks", 1), 0, None
+    if d > 1:
+        from .ranks import World
+        rank = int(os.environ["RANK"])
+        if cuda:
+            torch.cuda.set_device(rank)
+        world = World(spec["device"], spec["traffic"]["axis"], spec["init"])
+        stamps["joined"] = time.monotonic()
+        while not os.path.exists(spec["path"]):    # the parent writes it
+            time.sleep(0.05)
+    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
     load = FrontDoor(torch, rt, spec["traffic"], spec["cfg"], spec["path"],
-                     device)
-    expected = parse_batches(os.path.getsize(spec["path"]), spec["cfg"])
-    off_launches = 0
+                     device, mesh=world and world.mesh)
+    expected = shards.parse_batches(os.path.getsize(spec["path"]),
+                                    spec["cfg"], d)[rank]
+    off_loads: List[int] = []
+    made = 0
 
     def counted():
-        nonlocal off_launches
+        nonlocal made
         before = _lib.LAUNCHES["parse_accumulate"]
         out = load()
         if _lib.LAUNCHES["parse_accumulate"] - before != expected:
-            off_launches += 1
+            off_loads.append(made)
+        made += 1
         return out
 
     counted()                             # the cell's shapes, once
+    if world is not None:
+        world.barrier()
     stamps["warmed"] = time.monotonic()
     window_start = time.monotonic()
     if cuda:
@@ -193,10 +211,15 @@ def run_loads(spec: Dict) -> Dict:
         out = counted()
         t1 = time.perf_counter()
         loads.append(t1 - t0)
-        if t1 - t_start - paused >= spec["seconds"]:
+        stop = t1 - t_start - paused >= spec["seconds"]
+        if world is not None:
+            stop = world.agree(stop)
+        if stop:
             break
         if i == spec["checked"]:
             checked[i] = load.to_host(out)
+            if world is not None:
+                world.barrier()
             paused += time.perf_counter() - t1
         del out
         i += 1
@@ -212,13 +235,15 @@ def run_loads(spec: Dict) -> Dict:
                     out = counted()
                 del out
         profiled = trace.collect(prof)
-    return {"loads_s": loads, "window_s": window_s,
+        for ld in profiled:
+            ld["rank"] = rank
+    if world is not None:
+        world.close()
+    return {"rank": rank, "loads_s": loads, "window_s": window_s,
             "window_start": window_start, "peak_bytes": peak,
-            "checked": checked, "off_launches": off_launches,
-            "expected_launches": expected,
-            "attempted": len(loads) + 1 + (PROFILED_LOADS if profiled
-                                           else 0),
-            "profiled": profiled, "stamps": stamps,
+            "checked": checked, "off_loads": off_loads,
+            "off_launches": len(off_loads), "expected_launches": expected,
+            "attempted": made, "profiled": profiled, "stamps": stamps,
             "device_name": torch.cuda.get_device_name(device) if cuda
             else "cpu"}
 
@@ -238,17 +263,20 @@ def _load_module(path: Path):
 
 class RunData:
     """What a per-layer reader reads: the profiled loads (``loads``, a
-    list of :mod:`.trace` load dicts; a load that lost a device record is
-    left out), the window's ``loads_s`` and ``window_s`` on the host's
-    clock, the graph's
-    ``file_bytes``, ``edges``, ``num_vertices`` and ``weighted``, and the
-    card's ``peak_bytes_per_s``."""
+    list of :mod:`.trace` load dicts, each rank's of a sharded cell with
+    its ``rank``; a load that lost a device record is left out), the
+    window's ``loads_s`` and ``window_s`` on the host's clock, the graph's
+    ``file_bytes``, ``edges``, ``num_vertices`` and ``weighted``, the
+    card's ``kind`` and ``peak_bytes_per_s``, and in a sharded cell the
+    least ``exchange_bytes`` of the busiest card (:mod:`.shards`)."""
 
     def __init__(self, result: Dict, graph: graphs.Graph, file_bytes: int,
                  kind: str):
         self.loads = [ld for ld in result["profiled"] if not ld["lost"]]
         self.loads_s = list(result["loads_s"])
         self.window_s = result.get("window_s")
+        self.exchange_bytes = result.get("exchange_bytes")
+        self.kind = kind
         self.file_bytes = file_bytes
         self.edges = graph.num_edges
         self.num_vertices = reference.vertex_count(graph.src, graph.dst)
@@ -292,12 +320,14 @@ class RunData:
         return ms or None
 
     def busy_window_s(self):
-        """``(busy, window)`` seconds over the whole profiled loads: the
-        union of the card's records, and the loads' host spans."""
+        """``(busy, window)`` seconds over the whole profiled loads, averaged
+        over the cards: the union of each load's records on its card, and
+        the loads' host spans."""
+        cards = len({ld.get("rank", 0) for ld in self.loads}) or 1
         busy = sum(trace.covered([(s, e) for _, s, e in ld["records"]])
-                   for ld in self.loads) / 1e6
+                   for ld in self.loads) / 1e6 / cards
         window = sum(ld["span"][1] - ld["span"][0] for ld in self.loads) \
-            / 1e6
+            / 1e6 / cards
         return busy, window
 
 
@@ -349,6 +379,13 @@ def compare(result: Dict, graph: graphs.Graph, traffic: Dict
         for got in result["checked"].values():
             counts.append(reference.compare_edges(got, g.src, g.dst,
                                                   g.weights, v))
+    elif traffic["product"] == "csr_sharded":
+        want = reference.shard_rows(reference.csr(g.src, g.dst, g.weights,
+                                                  v), traffic["ranks"])
+        for got in result["checked"].values():
+            counts.append(reference.compare_shards(got, want,
+                                                   g.weights is not None))
+        del want
     else:
         ref = reference.csr(g.src, g.dst, g.weights, v)
         for got in result["checked"].values():
@@ -392,33 +429,49 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
     """One run of cell ``name``: ``(result, forbidden)``, the result line's
     object and the forbidden modules loaded.  ``cfg_override`` replaces
     keys of the configuration (tests run scale 10 on the CPU with it).
-    The graph is made while torch and the port import."""
+    The graph is made while torch and the port import; a sharded cell's
+    ranks start once the kernels are built and wait for it."""
+    from . import ranks
     bench = benchmark()
     cell, cfg, traffic = cell_parts(bench, name)
     cfg = dict(cfg, **(cfg_override or {}))
-    if cell["chips"] != 1:
-        raise BenchError(f"{name}: the harness loads on one card, the cell "
-                         f"asks for {cell['chips']}")
+    d = traffic.get("ranks", 1)
+    if d != cell["chips"]:
+        raise BenchError(f"{name}: the traffic runs {d} rank(s), the cell "
+                         f"asks for {cell['chips']} chips")
     tmp = tempfile.mkdtemp(prefix="gvelbench_")
     path = os.path.join(tmp, "graph.el")
     spec = {"path": path, "cfg": cfg, "traffic": traffic,
             "seconds": seconds, "trace": trace_on,
             "checked": checked_index(seed), "device": device,
             "patch": patch}
+    world = ranks.Ranks(spec, d, tmp) if d > 1 else None
+
+    def prepare():
+        if device == "cuda":
+            _prepare(name, cell["chips"], t0, say)
+        if world is not None:
+            world.start()
+
     pool = ThreadPoolExecutor(1)
     try:
-        prep = pool.submit(_prepare, name, cell["chips"], t0, say) \
-            if device == "cuda" else None
+        prep = pool.submit(prepare)
         graph = graphs.make(cfg, seed, path)
         file_bytes = os.path.getsize(path)
         say(f"graph {cfg['name']} seed {seed}: {graph.num_edges} edges, "
             f"{file_bytes} bytes, written by {time.monotonic() - t0:.3f} s")
-        if prep is not None:
-            prep.result()
-        r = run_loads(spec)
+        prep.result()
+        r = run_loads(spec) if world is None else world.wait()
     finally:
+        if world is not None:
+            world.stop()
         pool.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
+    if trace_on and d > 1:
+        r["exchange_bytes"] = roofline.exchange_bytes(
+            shards.moves(graph, cfg, file_bytes, d,
+                         reference.vertex_count(graph.src, graph.dst)),
+            graph.weights is not None)
     loads = r["loads_s"]
     say("set-up, s from the start: " + json.dumps(
         {k: round(v - t0, 3) for k, v in r["stamps"].items()}))
@@ -427,7 +480,7 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
         f"parse launches a load {r['expected_launches']}")
     say("load s: " + json.dumps([round(x, 4) for x in loads]))
     device_info = {"platform": "gpu" if device == "cuda" else "cpu",
-                   "kind": r["device_name"], "count": 1,
+                   "kind": r["device_name"], "count": d,
                    "memory_peak_bytes": r["peak_bytes"]}
     extra = {}
     if trace_on:
@@ -447,7 +500,8 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
               "metrics": metrics, "device": device_info, **extra,
               "checks": {k: {"value": v, "limit": 0}
                          for k, v in checks.items()}}
-    return result, forbidden_modules()
+    return result, sorted(set(forbidden_modules()) |
+                          set(r.get("forbidden", ())))
 
 
 def _end_to_end(bench: Dict, name: str, r: Dict,
@@ -464,10 +518,11 @@ def _per_layer(bench: Dict, name: str, data: RunData, r: Dict,
         [ld["lost"] for ld in r["profiled"]]))
     metrics, claimers = {}, []
     for m in bench["per_layer"]:
-        if applies(m, name):
-            v = data.value(m["name"])
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        if not applies(m, name):
+            continue
+        v = data.value(m["name"])
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         mod = data.module(m["name"])
         if hasattr(mod, "make_claim"):
             claimers.append(mod.make_claim(data))

@@ -97,14 +97,10 @@ def intersect(a, b) -> float:
 
 def idle(load: Dict) -> List:
     """The stretches of a load's host span (us) in which none of its
-    records runs on the card.  A record named after a host range (the
-    profiler's image of ``gvelbench.load.<i>`` on the card, which can share
-    a launch's correlation id) is no work of the card's."""
+    records runs on the card."""
     lo, hi = load["span"]
     out, t = [], lo
-    work = [(s, e) for n, s, e in load["records"]
-            if not n.startswith(trace.RANGE)]
-    for s, e in trace.union(work):
+    for s, e in trace.union([(s, e) for _, s, e in load["records"]]):
         if s > t:
             out.append((t, min(s, hi)))
         t = max(t, e)

@@ -12,12 +12,13 @@ shorter one as differing.
 
 The controls break one guarantee that every configuration states, in the
 reference put in the program's place: a CSR whose rows hold their targets
-in reverse file order (what an unstable sort gives), and an edge list
-grouped by source instead of in file order.
+in reverse file order (what an unstable sort gives), an edge list grouped
+by source instead of in file order, and a sharded CSR whose first two
+ranks hold each other's rows.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -83,6 +84,43 @@ def compare_edges(got: Dict, src, dst, weights,
     return out
 
 
+def shard_rows(want: Dict, d: int) -> List[Dict]:
+    """The reference CSR ``want`` cut into ``d`` ranks' rows as the sharded
+    load lays them out: rank k holds rows ``[k * rows, (k + 1) * rows)``,
+    ``rows = ceil(V / d)``, with ``rows + 1`` offsets from 0 (rows past V
+    empty) and its edges' targets (and weights)."""
+    v = want["num_vertices"]
+    rows = max(-(-v // d), 1)
+    out = []
+    for k in range(d):
+        lo, hi = min(k * rows, v), min((k + 1) * rows, v)
+        e_lo, e_hi = int(want["offsets"][lo]), int(want["offsets"][hi])
+        offsets = np.full(rows + 1, e_hi - e_lo, np.int64)
+        offsets[:hi - lo + 1] = want["offsets"][lo:hi + 1] - e_lo
+        out.append({"offsets": offsets,
+                    "targets": want["targets"][e_lo:e_hi],
+                    "weights": None if want["weights"] is None
+                    else want["weights"][e_lo:e_hi],
+                    "num_vertices": v, "row_start": k * rows})
+    return out
+
+
+def compare_shards(got: List[Dict], want: List[Dict],
+                   weighted: bool) -> Dict[str, int]:
+    """Each rank's rows (``offsets``, ``targets``, ``weights``,
+    ``num_vertices``, ``row_start``) against :func:`shard_rows`, the counts
+    summed over the ranks.  Rows that start elsewhere than the rank's
+    range have every offset wrong."""
+    out: Dict[str, int] = {}
+    for g, w in zip(got, want):
+        c = compare_csr(g, w, weighted, w["num_vertices"])
+        if int(g["row_start"]) != w["row_start"]:
+            c["offsets_wrong"] = max(len(g["offsets"]), len(w["offsets"]))
+        for key, v in c.items():
+            out[key] = out.get(key, 0) + v
+    return out
+
+
 def worst(counts) -> Dict[str, int]:
     """The largest of each count over several comparisons."""
     out: Dict[str, int] = {}
@@ -103,6 +141,14 @@ def control_csr(src, dst, weights, num_vertices: int) -> Dict:
     keys.sort()
     order = len(src) - 1 - (keys & 0xFFFFFFFF)
     return csr(src, dst, weights, num_vertices, order=order)
+
+
+def control_shards(src, dst, weights, num_vertices: int, d: int
+                   ) -> List[Dict]:
+    """The ranks' rows with ranks 0's and 1's swapped."""
+    rows = shard_rows(csr(src, dst, weights, num_vertices), d)
+    rows[0], rows[1] = rows[1], rows[0]
+    return rows
 
 
 def control_edges(src, dst, weights) -> Dict:

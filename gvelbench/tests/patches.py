@@ -75,3 +75,92 @@ def altered():
         return out
     _set(loader, "parse_accumulate", alter)
 
+
+
+# the sharded cell on the CPU: 4 KiB blocks, two to a batch, so that each
+# of the four ranks parses a span of a scale-10 file
+SMALL_GEOMETRY = {"beta": 4096, "batch_blocks": 2, "overlap": 64}
+
+
+def small_blocks():
+    """The port's default geometry at :data:`SMALL_GEOMETRY` (the run's
+    configuration states it too)."""
+    import_program()
+    from repro_torch.core import loader
+    _set(loader, "DEFAULT_BETA", SMALL_GEOMETRY["beta"])
+    _set(loader, "DEFAULT_BATCH_BLOCKS", SMALL_GEOMETRY["batch_blocks"])
+    _set(loader, "DEFAULT_OVERLAP", SMALL_GEOMETRY["overlap"])
+
+
+def sharded_cpu():
+    """:func:`small_blocks`, and each batch counted."""
+    small_blocks()
+    count_cpu_launches()
+
+
+def sharded_cached():
+    small_blocks()
+    cached()
+
+
+def sharded_half_batches():
+    small_blocks()
+    half_batches()
+
+
+def sharded_altered():
+    small_blocks()
+    altered()
+
+
+def no_exchange():
+    """The exchange left out: every rank receives what it would send."""
+    sharded_cpu()
+    from repro_torch.core import distributed
+    real = distributed.dist
+
+    class Local:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def all_to_all_single(out, x, group=None):
+            out.copy_(x)
+    _set(distributed, "dist", Local())
+
+
+def dropped_bucket():
+    """Rank 1 sends rank 2 nothing: its bucket for rank 2 emptied before
+    the exchange."""
+    sharded_cpu()
+    import os
+    from repro_torch.core import distributed
+    if os.environ.get("RANK") != "1":
+        return
+    bucket = distributed.bucket_by_owner
+
+    def drop(*args, **kw):
+        snd_src, snd_dst, snd_w, overflow = bucket(*args, **kw)
+        cap = kw["send_cap"]
+        snd_src[2 * cap:3 * cap] = -1
+        snd_dst[2 * cap:3 * cap] = -1
+        return snd_src, snd_dst, snd_w, overflow
+    _set(distributed, "bucket_by_owner", drop)
+
+
+def rank_exits():
+    """Rank 2 exits in its second load, while the others wait for it."""
+    sharded_cpu()
+    import os
+    from repro_torch.core import distributed
+    if os.environ.get("RANK") != "2":
+        return
+    stream = distributed.stream_shards
+    calls = [0]
+
+    def exit_early(*args, **kw):
+        calls[0] += 1
+        if calls[0] == 2:
+            os._exit(3)
+        return stream(*args, **kw)
+    _set(distributed, "stream_shards", exit_early)

@@ -108,3 +108,108 @@ def test_nothing_to_read_gives_nothing():
     d = harness.RunData({"profiled": [], "loads_s": []}, g, 10, "cpu")
     for m in harness.benchmark()["per_layer"]:
         assert d.value(m["name"]) is None
+
+
+GATHER = "ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)"
+SENDRECV = "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)"
+
+
+def rank_load(rank, offset):
+    # us: parse 10-14, the vertex count 15-16, a copy 16-17, the histogram
+    # 17-18, a gather 19-20, the one-hot cumsum 21-23, a gather 24-25, the
+    # exchange 26-30 (rank 1's starts later), the build 31-35
+    late = 2 if rank else 0
+    recs = [(PARSE, 10, 14), ("reduce_kernel", 15, 16),
+            ("Memcpy DtoH (Device -> Pinned)", 16, 17),
+            ("bincount", 17, 18), (GATHER, 19, 20), ("cumsum", 21, 23),
+            (GATHER, 24, 25), (SENDRECV, 26 + late, 30),
+            ("radixSortKVInPlace", 31, 35)]
+    return {"span": (offset, offset + 50), "rank": rank,
+            "records": [(n, s + offset, e + offset) for n, s, e in recs],
+            "launches": len(recs), "lost": 0, "gaps": []}
+
+
+def sharded(exchange_bytes=450_000):
+    ids = np.arange(10, dtype=np.int32)
+    result = {"profiled": [rank_load(0, 0), rank_load(1, 0),
+                           rank_load(0, 100), rank_load(1, 100)],
+              "loads_s": [0.5], "window_s": 1.0,
+              "exchange_bytes": exchange_bytes}
+    return harness.RunData(result, graphs.Graph(ids, ids, None), 1000,
+                           "NVIDIA H100 80GB HBM3")
+
+
+def test_sharded_readers():
+    d = sharded()
+    # NCCL: 1 + 1 + 4 us on rank 0, 1 + 1 + 2 on rank 1
+    assert d.value("exchange_device_ms") == pytest.approx(0.005)
+    # 450 kB over 450 GB/s: 1 us of the 5
+    assert d.value("exchange_roofline") == pytest.approx(20.0)
+    # from 14 to the exchange, NCCL and the copy out: 1 + 1 + 2 us
+    assert d.value("bucket_device_ms") == pytest.approx(0.004)
+    assert d.value("parse_device_ms") == pytest.approx(0.004)
+    # busy 10-14, 15-18, 19-20, 21-23, 24-25, 26-30, 31-35 = 19 us of a
+    # load's 50 on rank 0, 17 on rank 1; two loads a card, over two cards
+    busy, window = d.busy_window_s()
+    assert busy == pytest.approx((2 * 19 + 2 * 17) / 2 / 1e6)
+    assert window == pytest.approx(2 * 50 / 1e6)
+    assert d.value("device_idle_pct") == pytest.approx(100 * (1 - 18 / 50))
+    assert sharded(None).value("exchange_roofline") is None
+
+
+def test_bucketing_needs_a_parse_and_an_exchange():
+    d = data()
+    assert d.value("bucket_device_ms") is None
+    assert d.value("exchange_device_ms") is None
+
+
+class Event:
+    """A kineto event as ``trace._raw`` reads it."""
+
+    def __init__(self, name, card, start_us, end_us, corr, note=False):
+        self._v = (name, card, start_us, end_us, corr, note)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+        return DeviceType.CUDA if self._v[1] else DeviceType.CPU
+
+    def start_ns(self):
+        return int(self._v[2] * 1000)
+
+    def duration_ns(self):
+        return int((self._v[3] - self._v[2]) * 1000)
+
+    def correlation_id(self):
+        return self._v[4]
+
+    def is_user_annotation(self):
+        return self._v[5]
+
+
+class Profile:
+    def __init__(self, events):
+        class Results:
+            def events(_):
+                return events
+
+        class Profiler:
+            kineto_results = Results()
+        self.profiler = Profiler()
+
+
+def test_a_range_image_never_takes_a_launchs_record():
+    pytest.importorskip("torch")
+    events = [Event("gvelbench.load.0", False, 0, 100, 7, note=True),
+              Event("cudaLaunchKernel", False, 10, 11, 9),
+              Event("cudaLaunchKernel", False, 20, 21, 7),
+              Event("parse", True, 12, 14, 9),
+              Event("build", True, 22, 25, 7),
+              # the range's card image shares its id, 7, with a launch
+              Event("gvelbench.load.0", True, 0, 100, 7, note=True),
+              Event("marker", True, 40, 90, 11, note=True)]
+    (ld,) = trace.collect(Profile(events))
+    assert ld["records"] == [("parse", 12, 14), ("build", 22, 25)]
+    assert ld["launches"] == 2 and ld["lost"] == 0

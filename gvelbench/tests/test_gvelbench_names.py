@@ -88,7 +88,7 @@ def test_per_layer_metrics():
             assert m["unit"] == "%"
         layers.setdefault(m["layer"], []).append(m["name"])
     assert set(layers) == {"front door", "host staging and H2D", "parse",
-                           "build", "device"}
+                           "build", "bucketing", "exchange", "device"}
 
 
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
@@ -102,8 +102,8 @@ def test_config_files(cfg):
 def test_every_cell_and_metric_has_its_file():
     for w in BENCH["workloads"]:
         cell, cfg, traffic = harness.cell_parts(BENCH, w["name"])
-        assert w["chips"] == 1
-        assert traffic["product"] in ("csr", "edgelist")
+        assert w["chips"] == traffic.get("ranks", 1)
+        assert traffic["product"] in ("csr", "edgelist", "csr_sharded")
     for m in BENCH["per_layer"]:
         assert (harness.HERE / "metrics" / f"{m['name']}.py").is_file()
     for w in BENCH["workloads"]:

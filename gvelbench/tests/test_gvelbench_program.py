@@ -77,9 +77,6 @@ def test_intersect_and_idle_edges():
     assert program.intersect([], [(0, 1)]) == 0
     ld = {"span": (0, 10), "records": [("k", -5, 2), ("k", 8, 12)]}
     assert program.idle(ld) == [(2, 8)]
-    # the card's image of a host range is not card work
-    ld["records"].append(("gvelbench.load.3", 0, 10))
-    assert program.idle(ld) == [(2, 8)]
     assert program.idle({"span": (0, 10), "records": []}) == [(0, 10)]
 
 

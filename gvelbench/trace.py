@@ -53,12 +53,19 @@ def is_card_work(name: str) -> bool:
 def _raw(prof):
     """The profile's events as ``(name, on_card, start_us, end_us,
     correlation id)``, straight from kineto (building the profiler's own
-    event tree takes tens of seconds over a window)."""
+    event tree takes tens of seconds over a window).  The card's images of
+    host ranges are left out: such an image carries the range's own
+    correlation id, which can equal a launch's, and it is no work of the
+    card's."""
     from torch.autograd import DeviceType
     for e in prof.profiler.kineto_results.events():
+        card = e.device_type() == DeviceType.CUDA
+        if card and (e.is_user_annotation() or
+                     e.name().startswith(RANGE + ".")):
+            continue
         start = e.start_ns() / 1e3
-        yield (e.name(), e.device_type() == DeviceType.CUDA, start,
-               start + e.duration_ns() / 1e3, e.correlation_id())
+        yield (e.name(), card, start, start + e.duration_ns() / 1e3,
+               e.correlation_id())
 
 
 def load_range(torch, i: int):
