@@ -20,17 +20,17 @@ from typing import Dict
 from . import graphs, harness, reference
 
 
-def control_result(graph: graphs.Graph, traffic: Dict) -> Dict:
-    """What a run would report, with the control's products."""
-    g = graph
-    v = reference.vertex_count(g.src, g.dst)
+def control_result(graph: graphs.Graph, traffic: Dict, cfg: Dict) -> Dict:
+    """What a run would report, with the control's products of the edges
+    as the product holds them."""
+    src, dst, w = reference.product_edges(graph, cfg)
+    v = reference.vertex_count(src, dst)
     if traffic["product"] == "edgelist":
-        got = reference.control_edges(g.src, g.dst, g.weights)
+        got = reference.control_edges(src, dst, w)
     elif traffic["product"] == "csr_sharded":
-        got = reference.control_shards(g.src, g.dst, g.weights, v,
-                                       traffic["ranks"])
+        got = reference.control_shards(src, dst, w, v, traffic["ranks"])
     else:
-        got = reference.control_csr(g.src, g.dst, g.weights, v)
+        got = reference.control_csr(src, dst, w, v)
     return {"off_launches": 0, "checked": {0: got}}
 
 
@@ -38,8 +38,8 @@ def run_control(name: str, seed: int, cfg_override=None) -> Dict:
     cell, cfg, traffic = harness.cell_parts(harness.benchmark(), name)
     cfg = dict(cfg, **(cfg_override or {}))
     graph = graphs.make(cfg, seed)
-    checks = harness.compare(control_result(graph, traffic), graph,
-                             traffic)
+    checks = harness.compare(control_result(graph, traffic, cfg), graph,
+                             traffic, cfg)
     return {"workload": name, "seed": seed,
             "correct": all(v == 0 for v in checks.values()),
             "checks": checks}

@@ -112,10 +112,11 @@ class FrontDoor:
         self.method = traffic.get("method")
         self.path, self.device, self.mesh = path, device, mesh
         self.weighted = cfg["weights"] != "none"
+        self.symmetric = reference.symmetric(cfg)
 
     def __call__(self):
         g = self.rt.open_graph(self.path, weighted=self.weighted,
-                               device=self.device)
+                               symmetric=self.symmetric, device=self.device)
         if self.product == "csr":
             out = g.csr(method=self.method)
         elif self.product == "edgelist":
@@ -266,12 +267,14 @@ class RunData:
     list of :mod:`.trace` load dicts, each rank's of a sharded cell with
     its ``rank``; a load that lost a device record is left out), the
     window's ``loads_s`` and ``window_s`` on the host's clock, the graph's
-    ``file_bytes``, ``edges``, ``num_vertices`` and ``weighted``, the
-    card's ``kind`` and ``peak_bytes_per_s``, and in a sharded cell the
-    least ``exchange_bytes`` of the busiest card (:mod:`.shards`)."""
+    ``file_bytes``, ``edges`` (the file's), ``product_edges`` (the edges
+    the product holds: twice the file's for a symmetric ``cfg``),
+    ``num_vertices`` and ``weighted``, the card's ``kind`` and
+    ``peak_bytes_per_s``, and in a sharded cell the least
+    ``exchange_bytes`` of the busiest card (:mod:`.shards`)."""
 
     def __init__(self, result: Dict, graph: graphs.Graph, file_bytes: int,
-                 kind: str):
+                 kind: str, cfg: Optional[Dict] = None):
         self.loads = [ld for ld in result["profiled"] if not ld["lost"]]
         self.loads_s = list(result["loads_s"])
         self.window_s = result.get("window_s")
@@ -279,6 +282,8 @@ class RunData:
         self.kind = kind
         self.file_bytes = file_bytes
         self.edges = graph.num_edges
+        self.product_edges = self.edges * (
+            2 if reference.symmetric(cfg or {}) else 1)
         self.num_vertices = reference.vertex_count(graph.src, graph.dst)
         self.weighted = graph.weights is not None
         self.peak_bytes_per_s = (roofline.peak_bytes_per_s(kind)
@@ -369,28 +374,27 @@ def checked_index(seed: int) -> int:
     return int(rng.integers(0, CHECKED_FROM))
 
 
-def compare(result: Dict, graph: graphs.Graph, traffic: Dict
+def compare(result: Dict, graph: graphs.Graph, traffic: Dict, cfg: Dict
             ) -> Dict[str, int]:
-    """The numbers compared, each with the limit 0."""
-    g = graph
-    v = reference.vertex_count(g.src, g.dst)
+    """The numbers compared, each with the limit 0, against the reference
+    of the edges as the product holds them."""
+    src, dst, w = reference.product_edges(graph, cfg)
+    v = reference.vertex_count(src, dst)
+    weighted = w is not None
     counts = []
     if traffic["product"] == "edgelist":
         for got in result["checked"].values():
-            counts.append(reference.compare_edges(got, g.src, g.dst,
-                                                  g.weights, v))
+            counts.append(reference.compare_edges(got, src, dst, w, v))
     elif traffic["product"] == "csr_sharded":
-        want = reference.shard_rows(reference.csr(g.src, g.dst, g.weights,
-                                                  v), traffic["ranks"])
+        want = reference.shard_rows(reference.csr(src, dst, w, v),
+                                    traffic["ranks"])
         for got in result["checked"].values():
-            counts.append(reference.compare_shards(got, want,
-                                                   g.weights is not None))
+            counts.append(reference.compare_shards(got, want, weighted))
         del want
     else:
-        ref = reference.csr(g.src, g.dst, g.weights, v)
+        ref = reference.csr(src, dst, w, v)
         for got in result["checked"].values():
-            counts.append(reference.compare_csr(got, ref,
-                                                g.weights is not None, v))
+            counts.append(reference.compare_csr(got, ref, weighted, v))
         del ref
     out = reference.worst(counts)
     out["loads_off_launches"] = result["off_launches"]
@@ -439,6 +443,9 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
     if d != cell["chips"]:
         raise BenchError(f"{name}: the traffic runs {d} rank(s), the cell "
                          f"asks for {cell['chips']} chips")
+    if reference.symmetric(cfg) and traffic["product"] == "csr_sharded":
+        raise BenchError(f"{name}: the port's sharded load does not take "
+                         f"symmetric=True, which {cfg['name']} states")
     tmp = tempfile.mkdtemp(prefix="gvelbench_")
     path = os.path.join(tmp, "graph.el")
     spec = {"path": path, "cfg": cfg, "traffic": traffic,
@@ -484,7 +491,7 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
                    "memory_peak_bytes": r["peak_bytes"]}
     extra = {}
     if trace_on:
-        data = RunData(r, graph, file_bytes, r["device_name"])
+        data = RunData(r, graph, file_bytes, r["device_name"], cfg)
         metrics = _per_layer(bench, name, data, r, say)
         device_info["busy_s"], device_info["window_s"] = \
             data.busy_window_s()
@@ -494,7 +501,9 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, *,
     smi = nvidia_smi() if device == "cuda" else None
     if smi:
         device_info["nvidia_smi"] = smi
-    checks = compare(r, graph, traffic)
+    t_ref = time.monotonic()
+    checks = compare(r, graph, traffic, cfg)
+    say(f"reference and comparison: {time.monotonic() - t_ref:.3f} s")
     result = {"correct": all(v == 0 for v in checks.values()),
               "attempted": r["attempted"], "failed": r["off_launches"],
               "metrics": metrics, "device": device_info, **extra,

@@ -1,10 +1,12 @@
 """The plain reference and the comparison that decides ``correct``.
 
 Plain NumPy over the arrays the benchmark generated (``graphs.make``),
-never over anything the program made.  The CSR is the edges grouped by
-source, each row's targets (and weights) in file order: the stable
-argsort of ``chip_smoke.py::csr_oracle``, computed here as a sort of the
-unique keys ``src << 32 | position``.
+never over anything the program made.  The product's edges are the
+file's, or for a configuration with ``"symmetric": true`` every edge and
+then every edge reversed (:func:`product_edges`).  The CSR is those edges
+grouped by source, each row's targets (and weights) in their order: the
+stable argsort of ``chip_smoke.py::csr_oracle``, computed here as a sort
+of the unique keys ``src << 32 | position``.
 
 Every comparison counts the entries that differ; each count has the
 limit 0.  A product of another length counts every entry past the
@@ -21,6 +23,23 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def symmetric(cfg: Dict) -> bool:
+    """Whether the configuration loads its file as an undirected graph."""
+    return bool(cfg.get("symmetric", False))
+
+
+def product_edges(graph, cfg: Dict):
+    """``(src, dst, weights)`` as the product holds them.  Directed: the
+    file's edges.  Symmetric: every edge in file order, then every edge
+    reversed in file order, each weight twice; self-loops come twice and
+    duplicates stay, as GVEL's symmetric load keeps them."""
+    src, dst, w = graph.src, graph.dst, graph.weights
+    if not symmetric(cfg):
+        return src, dst, w
+    return (np.concatenate([src, dst]), np.concatenate([dst, src]),
+            None if w is None else np.concatenate([w, w]))
 
 
 def stable_order(src: np.ndarray) -> np.ndarray:

@@ -76,6 +76,17 @@ def altered():
     _set(loader, "parse_accumulate", alter)
 
 
+def no_symmetric():
+    """A symmetric configuration loaded as a directed one: the reverse
+    edges never appended."""
+    count_cpu_launches()
+    import repro_torch
+    open_graph = repro_torch.open_graph
+
+    def directed(path, **kw):
+        return open_graph(path, **dict(kw, symmetric=False))
+    _set(repro_torch, "open_graph", directed)
+
 
 # the sharded cell on the CPU: 4 KiB blocks, two to a batch, so that each
 # of the four ranks parses a span of a scale-10 file

@@ -6,10 +6,16 @@ import copy
 from gvelbench import harness
 
 CONFIGS = [{"name": "gap-urand-s22-w",
-            "file": "gvelbench/configs/gap-urand-s22-w.json"}]
+            "file": "gvelbench/configs/gap-urand-s22-w.json"},
+           {"name": "gap-urand-s22-wsym",
+            "file": "gvelbench/configs/gap-urand-s22-wsym.json"}]
 WORKLOADS = [
     {"name": "gap-urand-s22-w.csr", "config": "gap-urand-s22-w",
      "traffic": "csr", "chips": 1},
+    {"name": "gap-urand-s22-wsym.csr", "config": "gap-urand-s22-wsym",
+     "traffic": "csr", "chips": 1},
+    {"name": "gap-urand-s22-wsym.edgelist", "config": "gap-urand-s22-wsym",
+     "traffic": "edgelist", "chips": 1},
     {"name": "graph500-s22.edgelist", "config": "graph500-s22",
      "traffic": "edgelist", "chips": 1},
 ]

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from gvelbench import graphs, harness, trace
+from gvelbench import graphs, harness, roofline, trace
 
 PARSE = "(anonymous namespace)::parse_accumulate_kernel(Geometry, ...)"
 
@@ -21,12 +21,13 @@ def load(offset, lost=0):
             "gaps": [("x", 5e-5)]}
 
 
-def data(profiled=None, loads_s=(0.5, 0.6, 0.7, 0.8, 0.9), window_s=3.6):
+def data(profiled=None, loads_s=(0.5, 0.6, 0.7, 0.8, 0.9), window_s=3.6,
+         cfg=None, weighted=False):
     ids = np.arange(10, dtype=np.int32)
-    g = graphs.Graph(ids, ids, None)
+    g = graphs.Graph(ids, ids, ids.astype(np.float32) if weighted else None)
     result = {"profiled": [load(0), load(1000)] if profiled is None
               else profiled, "loads_s": list(loads_s), "window_s": window_s}
-    return harness.RunData(result, g, 1000, "NVIDIA H100 80GB HBM3")
+    return harness.RunData(result, g, 1000, "NVIDIA H100 80GB HBM3", cfg)
 
 
 def test_device_time_readers():
@@ -72,6 +73,44 @@ def test_rooflines():
     least_build = (10 * 12 + 11 * 8) / 3.35e12 * 1e3
     assert d.value("build_roofline") == pytest.approx(
         100 * least_build / 0.007)
+
+
+def config(name):
+    """A configuration of the benchmark or of its spare cells."""
+    from gvelbench.tests import spare
+    files = {c["name"]: c["file"] for c in spare.bench()["configs"]}
+    return harness.read_json(harness.ROOT / files[name])
+
+
+@pytest.mark.parametrize("name", ["graph500-s22", "gap-urand-s22-w"])
+def test_a_directed_configuration_reads_as_before(name):
+    # the readers' formulas before configurations stated their symmetry,
+    # compared exactly
+    cfg = config(name)
+    weighted = cfg["weights"] != "none"
+    d = data(cfg=cfg, weighted=weighted)
+    assert d.product_edges == d.edges == 10
+    peak = 3.35e12
+    assert d.value("build_roofline") == 100.0 * (
+        roofline.build_bytes(10, 10, weighted) / peak * 1e3) / 0.007
+    assert d.value("parse_roofline") == 100.0 * (
+        roofline.parse_bytes(1000, 10, weighted) / peak * 1e3) / 0.004
+    assert d.value("window_edges_per_s") == 5 * 10 / 3.6
+
+
+def test_a_symmetric_build_counts_the_edges_it_holds():
+    # the spare GAP file loaded symmetric: the build places 2E edges, the
+    # parse still reads E lines and the rate counts the file's edges
+    cfg = config("gap-urand-s22-wsym")
+    assert cfg["symmetric"] is True
+    d = data(cfg=cfg, weighted=True)
+    assert (d.edges, d.product_edges) == (10, 20)
+    least_build = (20 * (12 + 8) + 11 * 8) / 3.35e12 * 1e3
+    assert d.value("build_roofline") == pytest.approx(
+        100 * least_build / 0.007)
+    directed = data(cfg=config("gap-urand-s22-w"), weighted=True)
+    for name in ("parse_roofline", "window_edges_per_s"):
+        assert d.value(name) == directed.value(name)
 
 
 def test_card_work_leaves_out_copies():

@@ -1,16 +1,19 @@
 """Each traffic mix's control flow at scale 10 on the CPU, through the
 harness's whole run but the look for a card; then the same run with the
 timed path broken underneath, and the control, each of which has to come
-out not correct.  The spare cells (:mod:`.spare`) run too."""
+out not correct.  The spare cells (:mod:`.spare`) run too; a cell whose
+configuration is symmetric also has to fail when loaded as directed."""
 import time
 
 import pytest
 
-from gvelbench import control, harness
+from gvelbench import control, harness, reference
 from gvelbench.tests import patches, spare
 
 # the sharded cell's runs are test_gvelbench_sharded.py's
 CELLS = [w["name"] for w in spare.bench()["workloads"] if w["chips"] == 1]
+SYMMETRIC = [c for c in CELLS if reference.symmetric(
+    harness.cell_parts(spare.bench(), c)[1])]
 SMALL = {"scale": 10}
 COUNT = "gvelbench.tests.patches:count_cpu_launches"
 
@@ -51,7 +54,8 @@ def test_the_control_is_not_correct(cell):
 
 
 FAULTS = [(cell, fault) for cell in CELLS
-          for fault in ("cached", "half_batches", "altered")]
+          for fault in ("cached", "half_batches", "altered")] + \
+    [(cell, "no_symmetric") for cell in SYMMETRIC]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
